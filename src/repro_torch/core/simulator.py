@@ -1,0 +1,441 @@
+"""Alg. 1, the full EHFL loop, in eager PyTorch.
+
+The counterpart of ``repro.core.simulator``: all per-client state is stacked
+on a leading N axis (batteries, ages, pending flags, feature moments and
+model parameters); epochs and slots are Python loops; local training is
+kappa-step SGD batched over clients with ``torch.func.vmap``, over the
+*active set only* under the default compaction (the started clients are
+gathered into a ``PolicySpec.max_active``-lane slab); FedAvg goes through
+the ``fedavg_reduce`` kernel and Eq. 5 + Eq. 7 through ``vaoi_distance``.
+On CUDA tensors those are the Hopper kernels; on CPU tensors their plain
+versions (``kernels.ops``).  Random draws come from a ``core.draws`` source.
+
+Not ported yet (ROADMAP.md queue 1): ``run_batch``, the fleet, the
+non-default harvest, stream and channel scenarios.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch.func import vmap
+from torch.profiler import record_function
+
+from repro_torch.core import energy as energy_lib
+from repro_torch.core import harvest as harvest_lib
+from repro_torch.core import policies as policy_lib
+from repro_torch.core.draws import DrawSource, EpochDraws, TorchDraws, sgd_batch_size
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.optim import sgd_update
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class EHFLConfig:
+    num_clients: int = 100
+    epochs: int = 500
+    slots_per_epoch: int = 30  # S
+    kappa: int = 20  # training cost in slots == battery units
+    p_bc: float = 0.1  # mean harvest rate (Bernoulli probability, Eq. 3)
+    k: int = 10  # selection budget (Alg. 2)
+    mu: float = 0.5  # VAoI significance threshold
+    lr: float = 0.01  # SGD gamma
+    probe_size: int = 30  # |B_i| for the proxy forward pass
+    e_max: int = 25  # kappa + 5
+    policy: str = "vaoi"
+    num_groups: int = 0  # FedBacys group count G (0 = default N // k)
+    alpha: float = 0.1  # Dirichlet concentration (data partition)
+    seed: int = 0
+    eval_every: int = 10
+    aux_note: str = ""
+    # scenario axes: only the defaults are ported (ROADMAP.md queue 1)
+    harvest: str = "bernoulli"
+    harvest_params: Tuple[Tuple[str, float], ...] = ()
+    stream: str = "static"
+    stream_params: Tuple[Tuple[str, float], ...] = ()
+    channel: str = "ideal"
+    channel_params: Tuple[Tuple[str, float], ...] = ()
+    max_retries: int = 3
+    backoff_cap: int = 8
+    # active-set compaction: "auto" compacts whenever the policy's slab is
+    # smaller than N; False forces the dense path
+    compact: Any = "auto"  # bool | "auto"
+
+    def harvest_process(self) -> harvest_lib.HarvestProcess:
+        return harvest_lib.make_process(self.harvest, p_bc=self.p_bc, **dict(self.harvest_params))
+
+    def check_ported(self) -> None:
+        """Raise for the scenario axes this slice of the port lacks."""
+        self.harvest_process()
+        if self.stream != "static" or self.stream_params:
+            raise NotImplementedError(
+                f"stream {self.stream!r} is not ported yet (ROADMAP.md queue 1, 'Scenario axes')"
+            )
+        if self.channel != "ideal" or self.channel_params:
+            raise NotImplementedError(
+                f"channel {self.channel!r} is not ported yet (ROADMAP.md queue 1, 'Scenario axes')"
+            )
+
+
+class Backend(NamedTuple):
+    """Model plug-in for the simulator."""
+
+    init: Callable[[torch.Generator, torch.device], Params]
+    grad_loss: Callable[[Params, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, Params]]
+    feature: Callable[[Params, torch.Tensor], torch.Tensor]  # (params, inputs) -> (F,)
+    probe: Callable[[Params, torch.Tensor], torch.Tensor]  # shared params, (N, b, ...) -> (N, F)
+    predict: Callable[[Params, torch.Tensor], torch.Tensor]
+    feature_dim: int
+    num_classes: int
+
+
+class EpochCarry(NamedTuple):
+    global_params: Params
+    msg_params: Params  # (N, ...) stacked messages
+    h: torch.Tensor  # (N, F) historical moments
+    age: torch.Tensor  # (N,) float32
+    battery: torch.Tensor  # (N,) int32
+    pending: torch.Tensor  # (N,) bool
+    counter: torch.Tensor  # (N,) int32
+    # scenario state of the reference; None / all-zero on the ported defaults
+    harvest: Any = None
+    stream: Any = None
+    retries: Any = None  # (N,) int32
+    backoff: Any = None  # (N,) int32
+    channel: Any = None
+
+
+def _local_train(
+    params: Params,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    perms: torch.Tensor,
+    cfg: EHFLConfig,
+    backend: Backend,
+    with_feature: bool = True,
+) -> Tuple[Params, torch.Tensor | None]:
+    """BATCHTRAIN (Alg. 1 lines 23-29) for B clients at once: kappa
+    minibatch SGD steps over one permutation pass each, starting from the
+    shared ``params``; accumulates the Eq. (6) historical moment.
+
+    images (B, n, ...), labels (B, n), perms (B, kappa*bs).  The feature is
+    taken after each step's update, on that step's batch.
+    ``with_feature=False`` (non-VAoI policies) skips the feature forward and
+    returns ``None`` for the moment."""
+    b, n = images.shape[:2]
+    bs = sgd_batch_size(cfg.kappa, n)
+    p = {k: v.unsqueeze(0).expand((b,) + v.shape).contiguous() for k, v in params.items()}
+    rows = torch.arange(b, device=images.device).unsqueeze(1)
+    grad_fn = vmap(backend.grad_loss)
+    feat_fn = vmap(backend.feature)
+    fsum = torch.zeros(b, backend.feature_dim, device=images.device) if with_feature else None
+    for j in range(cfg.kappa):
+        idx = perms[:, j * bs : (j + 1) * bs]
+        imgs, lbls = images[rows, idx], labels[rows, idx]
+        _, grads = grad_fn(p, imgs, lbls)
+        p = sgd_update(p, grads, cfg.lr)
+        if with_feature:
+            fsum = fsum + feat_fn(p, imgs) * bs  # batch-mean feature of w^(t,b+1)
+    return p, fsum / (cfg.kappa * bs) if with_feature else None
+
+
+def flatten_clients(stacked: Params) -> Tuple[torch.Tensor, List[Tuple[str, torch.Size, torch.dtype]]]:
+    """Ravel a stacked {name: (N, ...)} dict into one (N, P) matrix + layout
+    aux (the layout the ``fedavg_reduce`` kernel consumes)."""
+    names = sorted(stacked)
+    flat = torch.cat([stacked[k].reshape(stacked[k].shape[0], -1) for k in names], dim=1)
+    return flat, [(k, stacked[k].shape[1:], stacked[k].dtype) for k in names]
+
+
+def unflatten_clients(vec: torch.Tensor, aux: List[Tuple[str, torch.Size, torch.dtype]]) -> Params:
+    """Inverse of :func:`flatten_clients` for one aggregated (P,) vector."""
+    out, i = {}, 0
+    for name, shape, dtype in aux:
+        size = int(np.prod(shape, dtype=np.int64))
+        out[name] = vec[i : i + size].reshape(shape).to(dtype)
+        i += size
+    return out
+
+
+def _keep_if_empty(mean: Params, cnt: torch.Tensor, fallback: Params) -> Params:
+    # no upload this epoch -> the global model stays as it was
+    return {k: torch.where(cnt > 0, mean[k], fallback[k]) for k in mean}
+
+
+def _masked_mean(stacked: Params, mask: torch.Tensor, fallback: Params) -> Params:
+    """FedAvg over the masked clients through one ``fedavg_reduce`` call
+    with normalized mask weights; ``fallback`` when nobody uploaded."""
+    cnt = mask.float().sum()
+    flat, aux = flatten_clients(stacked)
+    mean = unflatten_clients(kops.fedavg_reduce(flat, mask.float() / cnt.clamp(min=1.0)), aux)
+    return _keep_if_empty(mean, cnt, fallback)
+
+
+def _compact_mean(
+    slab: Params, slab_mask: torch.Tensor, old: Params, old_mask: torch.Tensor, fallback: Params
+) -> Params:
+    """FedAvg for the compacted path: this epoch's fresh uploads live in the
+    (cap, ...) training slab (``slab_mask``), while carriers of an OLD
+    message upload it from the N-wide ``old`` dict (``old_mask``).  Two
+    ``fedavg_reduce`` calls share one count."""
+    cnt = slab_mask.float().sum() + old_mask.float().sum()
+    sflat, aux = flatten_clients(slab)
+    oflat, _ = flatten_clients(old)
+    tot = kops.fedavg_reduce(sflat, slab_mask.float()) + kops.fedavg_reduce(oflat, old_mask.float())
+    return _keep_if_empty(unflatten_clients(tot / cnt.clamp(min=1.0), aux), cnt, fallback)
+
+
+def resolve_compact_cap(cfg: EHFLConfig, spec: policy_lib.PolicySpec) -> int | None:
+    """The static training-slab size for this (config, policy), or ``None``
+    for the dense path (fedavg's slab would be the whole fleet)."""
+    # identity checks: `0 in (True, False, "auto")` is True (0 == False)
+    if cfg.compact is False:
+        return None
+    if cfg.compact is not True and cfg.compact != "auto":
+        raise ValueError(f"compact must be True, False or 'auto'; got {cfg.compact!r}")
+    cap = spec.max_active
+    if cap <= 0 or cap >= cfg.num_clients:
+        return None
+    return cap
+
+
+def init_carry(
+    cfg: EHFLConfig,
+    backend: Backend,
+    device: str | torch.device | None = None,
+    params: Params | None = None,
+    seed: int | None = None,
+) -> EpochCarry:
+    """Initial :class:`EpochCarry`.  ``params`` (e.g. the reference's init,
+    through ``checkpoint.convert``) replaces the random init drawn from
+    ``seed`` (default ``cfg.seed``)."""
+    device = resolve_device(device)
+    cfg.check_ported()
+    n = cfg.num_clients
+    if params is None:
+        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+        params = backend.init(gen, device)
+    else:
+        params = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
+    zeros = lambda dtype: torch.zeros(n, dtype=dtype, device=device)
+    return EpochCarry(
+        global_params=params,
+        msg_params={k: v.unsqueeze(0).expand((n,) + v.shape).contiguous() for k, v in params.items()},
+        h=torch.zeros(n, backend.feature_dim, device=device),
+        age=zeros(torch.float32),
+        battery=zeros(torch.int32),
+        pending=zeros(torch.bool),
+        counter=zeros(torch.int32),
+        retries=zeros(torch.int32),
+        backoff=zeros(torch.int32),
+    )
+
+
+def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def epoch_body(
+    carry: EpochCarry,
+    t: int,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    draws: EpochDraws,
+    *,
+    cfg: EHFLConfig,
+    backend: Backend,
+    spec: policy_lib.PolicySpec,
+    process: harvest_lib.HarvestProcess,
+) -> Tuple[EpochCarry, Dict[str, torch.Tensor]]:
+    """One epoch of Alg. 1 over all N clients.  ``images``/``labels`` are
+    the per-client sample pools; ``draws`` are this epoch's random draws."""
+    n, S, kappa = cfg.num_clients, cfg.slots_per_epoch, cfg.kappa
+
+    # --- CLIENTSELECT (Alg. 2) on the freshly-broadcast global model ---
+    # (the ``ehfl.*`` ranges name the layers in a torch.profiler trace)
+    with record_function("ehfl.select"):
+        selected = policy_lib.epoch_selection(spec, carry.age, t, cfg.k, draws.noise)
+    if spec.uses_vaoi:
+        with record_function("ehfl.probe"):
+            # one batched forward of the shared global model over all N·probe images
+            v = backend.probe(carry.global_params, images[:, : cfg.probe_size])
+        with record_function("ehfl.vaoi"):
+            m, age = kops.vaoi_distance(v, carry.h, carry.age, selected.float(), cfg.mu)
+    else:
+        age = carry.age
+        m = torch.zeros(n, device=age.device)
+
+    # --- slot-level energy dynamics ---
+    st0 = energy_lib.init_slot_state(n, carry.battery.device, battery=carry.battery, S=S)
+    st0 = st0._replace(pending=carry.pending, counter=carry.counter, harvest=process.init(draws.harvest, n))
+    with record_function("ehfl.slot_scan"):
+        st = energy_lib.scan_epoch(
+            st0, S=S, kappa=kappa, e_max=cfg.e_max, process=process,
+            want_fn=policy_lib.make_want_fn(spec, selected, S, kappa),
+            count_opportunity_fn=policy_lib.make_opportunity_fn(spec, selected, S, kappa),
+        )
+    upload_mask = st.uploaded  # the ideal channel delivers every upload
+
+    # --- local training (only VAoI policies read the Eq. 6 moment h) ---
+    pending_in = carry.pending  # entered the epoch with an unsent (old) message?
+    cap = resolve_compact_cap(cfg, spec)
+
+    def train(imgs, lbls, perms):
+        with record_function("ehfl.local_train"):
+            return _local_train(carry.global_params, imgs, lbls, perms, cfg, backend, with_feature=spec.uses_vaoi)
+
+    if cap is None:
+        # --- dense path: train all clients, keep the started ones ---
+        trained, h_new = train(images, labels, draws.perms)
+        started = st.started
+        msg_params = {
+            k: torch.where(_rows(started, old), trained[k], old) for k, old in carry.msg_params.items()
+        }
+        h = torch.where(started[:, None], h_new, carry.h) if spec.uses_vaoi else carry.h
+        # old-pending uploads use their old message
+        contrib = {
+            k: torch.where(_rows(pending_in, old), old, msg_params[k])
+            for k, old in carry.msg_params.items()
+        }
+        with record_function("ehfl.fedavg"):
+            new_global = _masked_mean(contrib, upload_mask, carry.global_params)
+    else:
+        # --- active-set compaction: gather the started clients into a
+        # static (cap, ...) slab, train only the slab, write it back ---
+        cap_loc = min(cap, n)
+        # stable argsort of ~started: started clients first, in ascending
+        # client order, so slab lane j is the j-th started client
+        slab_idx = torch.argsort((~st.started).to(torch.int32), stable=True)[:cap_loc]
+        slab_valid = torch.arange(cap_loc, device=slab_idx.device) < st.started.sum()
+        trained, h_slab = train(images[slab_idx], labels[slab_idx], draws.perms[slab_idx])
+        # padding lanes (clients that did not start) write back their own
+        # old rows, so only the valid lanes change anything: the reference
+        # drops them with an out-of-bounds scatter, which torch lacks
+        with record_function("ehfl.scatter"):
+            msg_params = {
+                k: old.index_copy(0, slab_idx, torch.where(_rows(slab_valid, trained[k]), trained[k], old[slab_idx]))
+                for k, old in carry.msg_params.items()
+            }
+            h = (
+                carry.h.index_copy(0, slab_idx, torch.where(slab_valid[:, None], h_slab, carry.h[slab_idx]))
+                if spec.uses_vaoi
+                else carry.h
+            )
+        # fresh uploads reduce over the slab; carriers of an old message
+        # upload it from the N-wide (pre-epoch) message dict
+        slab_new = (upload_mask & ~pending_in)[slab_idx] & slab_valid
+        old_mask = upload_mask & pending_in
+        with record_function("ehfl.fedavg"):
+            new_global = _compact_mean(trained, slab_new, carry.msg_params, old_mask, carry.global_params)
+
+    zero = torch.zeros((), dtype=torch.int64, device=age.device)
+    metrics = {
+        "energy": st.energy_used.sum(),
+        "avg_age": age.sum() / n,
+        "n_started": st.started.sum(),
+        "n_uploaded": st.uploaded.sum(),
+        "avg_m": m.sum() / n,
+        "n_delivered": upload_mask.sum(),
+        "n_failed": zero,
+        "n_dropped": zero,
+        "selected": selected,  # (N,) mask: lets two runs compare selections exactly
+    }
+    return (
+        carry._replace(
+            global_params=new_global,
+            msg_params=msg_params,
+            h=h,
+            age=age,
+            battery=st.battery,
+            pending=st.pending,
+            counter=st.counter,
+        ),
+        metrics,
+    )
+
+
+def make_epoch_fn(
+    cfg: EHFLConfig, backend: Backend, data: Dict[str, torch.Tensor]
+) -> Callable[[EpochCarry, int, EpochDraws], Tuple[EpochCarry, Dict[str, torch.Tensor]]]:
+    """One epoch of Alg. 1 as a ``(carry, t, draws) -> (carry, metrics)`` function."""
+    cfg.check_ported()
+    spec = policy_lib.make_policy(cfg.policy, num_clients=cfg.num_clients, k=cfg.k, num_groups=cfg.num_groups)
+    process = cfg.harvest_process()
+    return lambda carry, t, draws: epoch_body(
+        carry, t, data["images"], data["labels"], draws,
+        cfg=cfg, backend=backend, spec=spec, process=process,
+    )
+
+
+def drive_epochs(
+    epoch_fn: Callable,
+    carry: EpochCarry,
+    cfg: EHFLConfig,
+    backend: Backend,
+    data: Dict[str, torch.Tensor],
+    draws: DrawSource,
+) -> Dict[str, Any]:
+    """The host loop: T epochs with macro-F1 eval after every ``eval_every``
+    epochs and after the last.  ``metrics["epoch_s"]`` is each epoch's host
+    wall time, taken after the device has finished it."""
+    from repro_torch.models.cnn import macro_f1
+
+    device = carry.age.device
+    n_samples = data["images"].shape[1]
+    per_epoch: List[Dict[str, torch.Tensor]] = []
+    epoch_s, f1s, f1_epochs = [], [], []
+    chunk = max(1, cfg.eval_every)
+    for t in range(cfg.epochs):
+        t0 = time.perf_counter()
+        carry, ms = epoch_fn(carry, t, draws.epoch(t, cfg, n_samples, device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        epoch_s.append(time.perf_counter() - t0)
+        per_epoch.append(ms)
+        if (t + 1) % chunk == 0 or t + 1 == cfg.epochs:
+            with record_function("ehfl.eval"):
+                preds = backend.predict(carry.global_params, data["test_images"])
+                f1s.append(macro_f1(preds, data["test_labels"], backend.num_classes))
+            f1_epochs.append(t + 1)
+
+    metrics = {k: torch.stack([ms[k] for ms in per_epoch]) for k in per_epoch[0]}
+    metrics["f1"] = torch.stack(f1s)
+    metrics["f1_epochs"] = torch.tensor(f1_epochs)
+    metrics["total_energy"] = metrics["energy"].sum()
+    metrics["epoch_s"] = torch.tensor(epoch_s, dtype=torch.float64)
+    return {"metrics": metrics, "global_params": carry.global_params, "carry": carry}
+
+
+def to_device_data(data: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """Client pools and test set (numpy arrays or tensors) on ``device``:
+    images float32, labels int64."""
+    out = {}
+    for k in ("images", "labels", "test_images", "test_labels"):
+        x = data[k] if isinstance(data[k], torch.Tensor) else torch.as_tensor(np.array(data[k]))
+        out[k] = x.to(device=device, dtype=torch.int64 if k.endswith("labels") else torch.float32)
+    return out
+
+
+def run_simulation(
+    cfg: EHFLConfig,
+    backend: Backend,
+    data: Dict[str, Any],
+    *,
+    draws: DrawSource | None = None,
+    params: Params | None = None,
+    device: str | torch.device | None = None,
+) -> Dict[str, Any]:
+    """Run T epochs of Alg. 1.  Returns metric trajectories + final model.
+
+    ``draws`` defaults to ``TorchDraws(cfg.seed)``; ``params`` replaces the
+    random initial global model; ``device=None`` means the GPU."""
+    device = resolve_device(device)
+    data = to_device_data(data, device)
+    carry = init_carry(cfg, backend, device, params=params)
+    epoch_fn = make_epoch_fn(cfg, backend, data)
+    return drive_epochs(epoch_fn, carry, cfg, backend, data, draws or TorchDraws(cfg.seed))

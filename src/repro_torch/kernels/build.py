@@ -1,0 +1,84 @@
+"""Build the Hopper kernels with ``nvcc`` at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C launcher, so it compiles in seconds
+without PyTorch's headers.  One ``nvcc`` runs per source, all started
+together.  A library is named by a hash of its source and flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing is compiled when a
+module is imported: the CPU has no ``nvcc`` and never needs one.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"  # listed in .gitignore
+KERNELS = ("vaoi_distance", "fedavg_reduce")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin): cannot build the CUDA kernels")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Sequence[str] = KERNELS, verbose: bool = False) -> Dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, one ``nvcc``
+    per source, all in parallel.  Returns each build's seconds (0.0 where the
+    library was already there); raises with ``nvcc``'s output on failure.
+    ``verbose`` prints ``ptxas``' register and shared-memory report."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    seconds = {name: 0.0 for name in names}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        if verbose:
+            print(f"[build] {name}: {seconds[name]:.2f} s\n{log.strip()}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,47 @@
+"""Public kernel entry points: CPU tensors go to the plain versions in
+``kernels.ref``; CUDA tensors go to the Hopper kernels, which launch or
+raise.  There is no fallback from a CUDA tensor to a plain version."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.fedavg_reduce import fedavg_reduce as _fedavg_reduce
+from repro_torch.kernels.vaoi_distance import vaoi_distance as _vaoi_distance
+
+KERNELS = {"vaoi_distance": _vaoi_distance, "fedavg_reduce": _fedavg_reduce}
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"inputs span devices {sorted(kinds)}; put them on one device")
+    return kinds == {"cpu"}
+
+
+def vaoi_distance(v, h, age, q, mu):
+    if _on_cpu(v, h, age, q):
+        return ref.vaoi_distance_ref(v, h, age, q, mu)
+    return _vaoi_distance(v, h, age, q, mu)
+
+
+def fedavg_reduce(msgs, weights):
+    """Weighted (K, P) -> (P,) reduce.  K may be the full client axis N or
+    the compacted ``cap``-sized training slab."""
+    if _on_cpu(msgs, weights):
+        return ref.fedavg_reduce_ref(msgs, weights)
+    return _fedavg_reduce(msgs, weights)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["vaoi_distance", "fedavg_reduce", "launch_counts", "reset_launch_counts", "ref"]

@@ -1,0 +1,62 @@
+"""The port stands alone: no module of ``src/repro_torch/`` and nothing in
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; and its entry
+points never quietly fall back to the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) > 20
+    assert (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in imported_modules(path) if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("entry", ["run_simulation", "init_carry", "make_federated_dataset"])
+def test_entry_points_raise_without_cuda(entry, monkeypatch):
+    from repro_torch.configs import CNNConfig
+    from repro_torch.core import EHFLConfig, init_carry, run_simulation
+    from repro_torch.data import make_federated_dataset
+    from repro_torch.fl import cnn_backend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = CNNConfig(image_size=8, conv_channels=(2, 2, 2, 2, 2, 2), fc_dims=(4, 4))
+    cfg = EHFLConfig(num_clients=2, epochs=1, k=1)
+    calls = {
+        "run_simulation": lambda: run_simulation(cfg, cnn_backend(tiny), {}),
+        "init_carry": lambda: init_carry(cfg, cnn_backend(tiny)),
+        "make_federated_dataset": lambda: make_federated_dataset(0, num_clients=2, samples_per_client=2),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_unported_config_axes_raise():
+    from repro_torch.core import EHFLConfig
+    from repro_torch.core.simulator import init_carry
+    from repro_torch.configs import CNNConfig
+    from repro_torch.fl import cnn_backend
+
+    backend = cnn_backend(CNNConfig(image_size=8, conv_channels=(2,) * 6, fc_dims=(4, 4)))
+    for kw in ({"stream": "drift"}, {"channel": "erasure"}, {"harvest": "markov"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_carry(EHFLConfig(num_clients=2, **kw), backend, device="cpu")
