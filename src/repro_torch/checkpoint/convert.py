@@ -1,12 +1,19 @@
-"""Carry weights and simulator state across from the JAX package.
+"""Carry weights and state across from the JAX package.
 
-The reference stores conv kernels HWIO; the port stores them OIHW.  Every
-other leaf keeps its layout (FC weights are (in, out) in both, and the
-port's flatten before ``fc0`` is in the reference's (h, w, c) order).  All
-inputs and outputs are numpy arrays, so neither side imports the other."""
+CNN: the reference stores conv kernels HWIO; the port stores them OIHW.
+Every other leaf keeps its layout (FC weights are (in, out) in both, and the
+port's flatten before ``fc0`` is in the reference's (h, w, c) order).
+
+Decoder: the reference keeps ``blocks``, a tuple of ``cfg.block_period``
+per-position dicts whose leaves are stacked over ``n_blocks``; layer
+``b * period + j`` is entry ``b`` of position ``j``.  The port keeps one
+dict per layer.  Leaves keep their layout (dense weights (in, out)); bf16
+leaves arrive as ``ml_dtypes.bfloat16`` or as a uint16 view and leave as a
+uint16 view, bit for bit.  All inputs and outputs are numpy arrays, so
+neither side imports the other."""
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -70,3 +77,108 @@ def carry_from_reference(fields: Mapping[str, Any], device: str | torch.device |
         retries=t("retries", torch.int32) if "retries" in fields else zeros,
         backoff=t("backoff", torch.int32) if "backoff" in fields else zeros.clone(),
     )
+
+
+# ---------------------------------------------------------------------------
+# Decoder params and decode caches
+# ---------------------------------------------------------------------------
+
+
+def tensor_from_numpy(arr: Any, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor with the same bits: ``ml_dtypes.bfloat16``
+    and uint16 views become ``torch.bfloat16`` (``torch.from_numpy`` takes
+    neither), through an int16 view."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        a = a.view(np.uint16)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`tensor_from_numpy`: bf16 leaves as a uint16 view."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees: Sequence[Any]) -> Any:
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _unstack_blocks(positions: Sequence[Any], num_layers: int, device) -> List[Any]:
+    """Reference per-position trees stacked over blocks -> one tree per layer."""
+    period = len(positions)
+    n_blocks = num_layers // period
+    layers: List[Any] = [None] * num_layers
+    for j, pos in enumerate(positions):
+        for b in range(n_blocks):
+            layers[b * period + j] = _map(lambda a, b=b: tensor_from_numpy(np.asarray(a)[b], device), pos)
+    return layers
+
+
+def _stack_blocks(layers: Sequence[Any], period: int) -> tuple:
+    """Inverse of :func:`_unstack_blocks`."""
+    n_blocks = len(layers) // period
+    return tuple(
+        _stack([_map(tensor_to_numpy, layers[b * period + j]) for b in range(n_blocks)]) for j in range(period)
+    )
+
+
+_DECODER_KEYS = {"embed", "final_norm", "blocks", "lm_head"}
+
+
+def decoder_params_from_reference(np_params: Mapping[str, Any], cfg, device: str | torch.device | None = None):
+    """Reference decoder params (numpy leaves) -> the port's
+    ``models.decoder`` params."""
+    from repro_torch.models.decoder import check_ported
+
+    check_ported(cfg)
+    extra = set(np_params) - _DECODER_KEYS
+    if extra:
+        raise NotImplementedError(f"params {sorted(extra)} belong to parts the port does not have (ROADMAP queue 1)")
+    if len(np_params["blocks"]) != cfg.block_period:
+        raise ValueError(f"{len(np_params['blocks'])} block positions, but {cfg.name} has period {cfg.block_period}")
+    device = resolve_device(device)
+    out = {
+        "embed": tensor_from_numpy(np_params["embed"], device),
+        "final_norm": _map(lambda a: tensor_from_numpy(a, device), np_params["final_norm"]),
+        "layers": _unstack_blocks(np_params["blocks"], cfg.num_layers, device),
+    }
+    if "lm_head" in np_params:
+        out["lm_head"] = tensor_from_numpy(np_params["lm_head"], device)
+    return out
+
+
+def decoder_params_to_reference(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """Inverse of :func:`decoder_params_from_reference`: numpy leaves in the
+    reference's layout, bf16 as a uint16 view."""
+    out = {
+        "embed": tensor_to_numpy(params["embed"]),
+        "final_norm": _map(tensor_to_numpy, params["final_norm"]),
+        "blocks": _stack_blocks(params["layers"], cfg.block_period),
+    }
+    if "lm_head" in params:
+        out["lm_head"] = tensor_to_numpy(params["lm_head"])
+    return out
+
+
+def decoder_cache_from_reference(np_cache: Sequence[Any], cfg, device: str | torch.device | None = None):
+    """Reference decode cache (a tuple of per-position dicts stacked over
+    blocks: ``conv`` in the model dtype, ``ssm`` fp32) -> one dict per layer."""
+    return _unstack_blocks(np_cache, cfg.num_layers, resolve_device(device))
+
+
+def decoder_cache_to_reference(cache: Sequence[Any], cfg) -> tuple:
+    """Inverse of :func:`decoder_cache_from_reference`."""
+    return _stack_blocks(cache, cfg.block_period)

@@ -1,0 +1,204 @@
+"""Language-model architecture config: the port's own copy of
+``repro.configs.base``'s :class:`ModelConfig`, with a torch dtype.
+
+Every ported arch gets a module ``src/repro_torch/configs/<id>.py`` that
+exports ``CONFIG`` (the exact published spec).  ``reduced()`` derives the
+CPU smoke-test variant with exactly the reference's reduced fields.  The
+registry loads only the arch modules the port has (``_ARCH_MODULES``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | hybrid | ssm | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    attn_out_bias: bool = False
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "silu"  # silu (gated) | gelu (non-gated)
+    tie_embeddings: bool = False
+    # --- MoE ---
+    num_experts: int = 0  # routed experts; 0 => dense FFN
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_period: int = 1  # layer i uses MoE iff num_experts>0 and i % moe_period == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    # --- hybrid: attention layer iff i % attn_period == attn_offset ---
+    attn_period: int = 1  # 1 => every layer is attention
+    attn_offset: int = 0
+    # --- SSM (mamba2) ---
+    ssm_state: int = 0  # 0 => no ssm layers
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    # --- encoder-decoder ---
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500
+    # --- modality frontend stubs ---
+    num_prefix_tokens: int = 0
+    # --- attention windowing (0 = full attention) ---
+    sliding_window: int = 0
+    long_context_window: int = 8192
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    source: str = ""  # citation
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    # -- derived -----------------------------------------------------------
+    def layer_kind(self, i: int) -> str:
+        """'attn' or 'ssm' token mixer for layer i."""
+        if self.ssm_state == 0:
+            return "attn"
+        if self.attn_period == 0:  # pure SSM
+            return "ssm"
+        return "attn" if i % self.attn_period == self.attn_offset else "ssm"
+
+    def layer_moe(self, i: int) -> bool:
+        return self.num_experts > 0 and i % self.moe_period == self.moe_offset
+
+    @property
+    def block_period(self) -> int:
+        """The reference stacks layers in super-blocks of this period; the
+        port loops over layers and uses it only to convert parameters."""
+        p = 1
+        if self.ssm_state > 0 and self.attn_period > 1:
+            p = self.attn_period
+        if self.num_experts > 0 and self.moe_period > 1:
+            p = p * self.moe_period // math.gcd(p, self.moe_period)
+        return p
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count, term for term the reference's."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        total = v * d * (1 if self.tie_embeddings else 2)
+        hd, nh, nkv = self.head_dim, self.num_heads, self.num_kv_heads
+        for i in range(self.num_layers):
+            kind = self.layer_kind(i)
+            if kind == "attn":
+                total += d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+                if self.qkv_bias:
+                    total += (nh + 2 * nkv) * hd
+            else:  # ssm
+                di, ds, nhs = self.d_inner, self.ssm_state, self.ssm_heads
+                total += d * (2 * di + 2 * ds + nhs)  # in_proj (z,x,B,C,dt)
+                total += (di + 2 * ds) * self.ssm_conv_width
+                total += nhs * 2 + di  # A_log, dt_bias, D
+                total += di * d  # out_proj
+            if self.layer_moe(i):
+                ne = self.num_experts + self.num_shared_experts
+                total += ne * 3 * d * ff + d * self.num_experts
+            elif kind == "attn" or self.ssm_state == 0 or self.d_ff > 0:
+                if self.d_ff > 0 and (kind == "attn" or self.family != "ssm"):
+                    total += 3 * d * ff
+            total += 2 * d  # norms
+        if self.is_encoder_decoder:
+            for _ in range(self.num_encoder_layers):
+                total += d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+                total += 2 * (d * ff) + d * ff
+            total += self.num_layers * (d * nh * hd + 2 * d * nkv * hd + nh * hd * d + 2 * d)
+        return total
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Smoke-test variant of the same family: <=2 layers (respecting the
+    block period), d_model<=256, <=4 experts, small vocab, fp32."""
+    d_model = min(cfg.d_model, 256)
+    n_heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
+    head_dim = d_model // n_heads if n_heads else 0
+    n_kv = max(1, min(cfg.num_kv_heads, n_heads)) if n_heads else 0
+    if n_heads and cfg.num_kv_heads < cfg.num_heads:  # keep the GQA ratio's flavour
+        n_kv = max(1, n_heads // max(1, cfg.num_heads // cfg.num_kv_heads))
+    changes: Dict[str, Any] = dict(
+        num_layers=2,
+        d_model=d_model,
+        num_heads=n_heads,
+        num_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        dtype=torch.float32,
+        ssm_chunk=64,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        long_context_window=128,
+    )
+    if cfg.num_experts > 0:
+        changes.update(
+            num_experts=4,
+            experts_per_token=min(cfg.experts_per_token, 2),
+            num_shared_experts=min(cfg.num_shared_experts, 1),
+        )
+    if cfg.ssm_state > 0:
+        changes.update(ssm_state=16, ssm_head_dim=32)
+        if cfg.attn_period > 1:  # hybrid: keep the interleave at 2 layers (ssm, attn)
+            changes.update(attn_period=2, attn_offset=1, moe_period=min(cfg.moe_period, 2))
+    if cfg.is_encoder_decoder:
+        changes.update(num_encoder_layers=2, encoder_seq=16)
+    if cfg.num_prefix_tokens > 0:
+        changes.update(num_prefix_tokens=8)
+    return dataclasses.replace(cfg, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+# The port's arch modules; the other reference archs wait for their model
+# families (ROADMAP queue 1).
+_ARCH_MODULES = ["mamba2_1_3b"]
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def _ensure_loaded() -> None:
+    import importlib
+
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown or unported arch {name!r}; the port has: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_configs() -> Tuple[str, ...]:
+    _ensure_loaded()
+    return tuple(sorted(_REGISTRY))

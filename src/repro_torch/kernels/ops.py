@@ -9,9 +9,10 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce as _fedavg_reduce
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 from repro_torch.kernels.vaoi_distance import vaoi_distance as _vaoi_distance
 
-KERNELS = {"vaoi_distance": _vaoi_distance, "fedavg_reduce": _fedavg_reduce}
+KERNELS = {"vaoi_distance": _vaoi_distance, "fedavg_reduce": _fedavg_reduce, "ssd_scan": _ssd_scan}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -35,6 +36,14 @@ def fedavg_reduce(msgs, weights):
     return _fedavg_reduce(msgs, weights)
 
 
+def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
+    """Mamba2 SSD scan -> (y fp32, final state fp32).  On the CPU the plain
+    version is the exact recurrence, which needs no ``chunk``."""
+    if _on_cpu(x, dt, A, Bm, Cm):
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    return _ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -44,4 +53,4 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["vaoi_distance", "fedavg_reduce", "launch_counts", "reset_launch_counts", "ref"]
+__all__ = ["vaoi_distance", "fedavg_reduce", "ssd_scan", "launch_counts", "reset_launch_counts", "ref"]

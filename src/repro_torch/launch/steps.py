@@ -1,0 +1,43 @@
+"""Serving step functions: the port of ``repro.launch.steps``'s prefill
+and serve steps.
+
+prefill    : full-sequence forward, last-position logits (serving prefill),
+             with the scan through the ``ssd_scan`` kernel by default.
+serve_step : single-token decode against the SSM cache.
+
+Both run under ``torch.inference_mode()``.  The train step waits for the
+training slice (ROADMAP queue 1 #12).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decoder
+
+
+def make_prefill_step(cfg: ModelConfig, use_kernel: bool = True):
+    def prefill(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        with torch.inference_mode():
+            logits, _ = decoder.forward_logits(
+                cfg,
+                params,
+                batch["tokens"],
+                prefix_embeddings=batch.get("prefix_embeddings"),
+                encoder_frames=batch.get("encoder_frames"),
+                last_only=True,
+                use_kernel=use_kernel,
+            )
+        return logits
+
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig):
+    def serve_step(params, cache, tokens: torch.Tensor, positions: torch.Tensor):
+        with torch.inference_mode():
+            return decoder.decode_step(cfg, params, cache, tokens, positions)
+
+    return serve_step

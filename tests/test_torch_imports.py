@@ -31,18 +31,30 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("entry", ["run_simulation", "init_carry", "make_federated_dataset"])
+@pytest.mark.parametrize(
+    "entry",
+    [
+        "run_simulation", "init_carry", "make_federated_dataset",
+        "decoder.init_params", "decoder.init_cache", "decoder_params_from_reference",
+    ],
+)
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
-    from repro_torch.configs import CNNConfig
+    from repro_torch.checkpoint.convert import decoder_params_from_reference
+    from repro_torch.configs import CNNConfig, get_config, reduced
     from repro_torch.core import EHFLConfig, init_carry, run_simulation
     from repro_torch.data import make_federated_dataset
     from repro_torch.fl import cnn_backend
+    from repro_torch.models import decoder
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tiny = CNNConfig(image_size=8, conv_channels=(2, 2, 2, 2, 2, 2), fc_dims=(4, 4))
     cfg = EHFLConfig(num_clients=2, epochs=1, k=1)
+    lm = reduced(get_config("mamba2-1.3b"))
     calls = {
         "run_simulation": lambda: run_simulation(cfg, cnn_backend(tiny), {}),
+        "decoder.init_params": lambda: decoder.init_params(lm),
+        "decoder.init_cache": lambda: decoder.init_cache(lm, 1, 8),
+        "decoder_params_from_reference": lambda: decoder_params_from_reference({"blocks": ({},)}, lm),
         "init_carry": lambda: init_carry(cfg, cnn_backend(tiny)),
         "make_federated_dataset": lambda: make_federated_dataset(0, num_clients=2, samples_per_client=2),
     }
