@@ -7,10 +7,12 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. Device: the card's name and power limit as nvidia-smi reports them.
-2. Build: the three Hopper kernels from ``src/repro_torch/csrc`` with nvcc
+2. Build: the four Hopper kernels from ``src/repro_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together.
 3. Kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes (timed with CUDA events) and over ragged fp32/bf16 sweeps.
+   paths' shapes (timed with CUDA events) and over ragged fp32/bf16 sweeps;
+   swa_attention at the prefill shape both in bf16 (each element within a
+   bf16 rounding step) and on the same inputs in fp32 (2e-5).
 4. The EHFL slice: ``run_simulation`` at the paper's width (the 845,738-parameter
    CNN, N=100 clients x 300 samples, k=10, S=30, kappa=20, a 500-image test
    set) for T epochs on the GPU, with ``TorchDraws(seed=0)``.  Only the depth
@@ -31,7 +33,22 @@ result line):
    serve step's logits at the last prompt token (chunked scan against the
    exact recurrence), in bf16 and in an fp32 copy of the weights; (e) peak
    GPU memory.
-7. One JSON line listing every ported kernel, then the result line.
+7. The attention slice: ``starcoder2-3b`` at its published width and depth
+   (30 layers, d 3072, 24 query heads and 2 KV heads of 128, gelu MLP
+   12288, vocab 49152, window 4096, bf16), random weights from
+   ``torch.Generator`` seed 0 on the card, after the Mamba2 weights are
+   freed.  (a) ``make_prefill_step`` on B=1 x P=16384 (StarCoder2's
+   training context): median time, prefill tokens/s, the swa_attention
+   counter at exactly 30 per call, one profiled prefill by ``lm.*`` range;
+   (b) the same prefill through the plain masked-softmax route, logits
+   compared; (c) requests: B=4 prompts of P=320 stepped through
+   ``make_serve_step`` (a rolling KV cache), then 32 greedy tokens; (d) the
+   kernel-route prefill logits at P=320 against the serve step's at the
+   last prompt token, in bf16 and in an fp32 copy of the weights; (e) peak
+   GPU memory; (f) a rolling wrap at the same width: 2 layers, window 256,
+   fp32, 600 tokens stepped, every 50th step's logits held against a
+   kernel-route prefill of the same prefix.
+8. One JSON line listing every ported kernel, then the result line.
 
 TF32 is switched off for cuDNN convolutions and matmuls, so the GPU runs
 compute in full fp32 where they are fp32, like the plain versions they are
@@ -51,28 +68,45 @@ from pathlib import Path
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12  # tensor cores; the ssd_scan redesign's yardstick
+TF32_FLOPS = 495e12  # tensor cores; the kernel redesigns' yardsticks
+BF16_FLOPS = 989e12
 
 # ssd_scan against ssd_scan_ref: both read the same fp32 or bf16 inputs and
 # accumulate in fp32 (the kernel by chunks, the plain version step by step),
 # so they differ only by summation order: error <= 1e-4 * max(1, max |ref|).
 SSD_RTOL = 1e-4
-# Serving (mamba2-1.3b).  Shapes of the issue: prefill B x P, requests of
-# REQ_P prompt tokens then REQ_G greedy tokens.
+# Serving.  Shapes of the issue: mamba2-1.3b's prefill B x P, starcoder2-3b's
+# at its training context, and for both requests of REQ_P prompt tokens then
+# REQ_G greedy tokens.
 PREFILL_B, PREFILL_P, PREFILL_RUNS = 4, 2048, 5
+SC_PREFILL_B, SC_PREFILL_P = 1, 16384
 REQ_B, REQ_P, REQ_G = 4, 320, 32
-# Logits of two routes through the 48-layer model, as max |a - b| over
-# max |b|, plus the least cosine similarity of a row.  In fp32 (TF32 off)
-# the routes round at 2**-24 per op: 1e-3 relative.  In bf16 they round at
-# 2**-8 per op, differ first in the scan's fp32 summation order (kernel
-# route against the plain chunked form) or in the whole computation order
-# (prefill GEMMs over B*P rows against 4-row decode GEMMs, chunked scan
-# against the recurrence), and every one of the 48 residual adds rounds in
-# bf16; the random-weight stack amplifies those differences to 0.07-0.09 of
-# the largest logit (cosine 0.996-0.997) on an H100 (PERF.md), where the
-# fp32 copy of the same weights agreed to 2e-5.  So bf16 is held at 0.2
-# and a cosine of at least 0.99, which a wrong scan (uncorrelated rows) fails.
-BF16_LOGITS_RTOL, BF16_MIN_COSINE, FP32_LOGITS_RTOL = 0.2, 0.99, 1e-3
+# Logits of two routes through the model (kernel route against plain route,
+# prefill against decode), as max |a - b| over max |b|, plus the least cosine
+# similarity of a row: (bf16 rtol, bf16 least cosine, fp32 rtol) per model.
+# In fp32 (TF32 off) the routes differ in summation order only.  In bf16 they
+# round at 2**-8 per op in different orders, every residual add rounds in
+# bf16, and the random-weight stack amplifies those differences.
+# mamba2-1.3b: the 48-layer stack spreads them to 0.07-0.09 of the largest
+# logit (cosine 0.996-0.997) on an H100 (PERF.md), where the fp32 copy of the
+# same weights agreed to 2e-5: bf16 is held at 0.2 and cosine 0.99, which a
+# wrong scan (uncorrelated rows) fails.  starcoder2-3b: its 30 layers read
+# 0.0121 (cosine 0.99993) kernel against plain route at 16384 tokens and
+# 0.0129 (cosine 0.99991) prefill against decode on an H100 (PERF.md), and
+# the fp32 copy 2.8e-6: bf16 is held at 0.05 and cosine 0.999, fp32 at 1e-4.
+LOGITS_LIMITS = {"mamba2-1.3b": (0.2, 0.99, 1e-3), "starcoder2-3b": (0.05, 0.999, 1e-4)}
+
+# swa_attention against swa_attention_ref: both read the same inputs and keep
+# scores, probabilities and sums in fp32, so in fp32 they differ by summation
+# order (tests/test_kernels.py's 2e-5).  In bf16 both round the same fp32
+# value, give or take summation order, to the output: equal, or one bf16 step
+# apart, which is at most 2**-7 of the element.  So each bf16 element is held
+# to |got - ref| <= 2**-7 |ref| + 1e-6 (the 1e-6 covers fp32 summation order
+# where the element is near 0), inside test_kernels.py's 0.05 absolute.
+SWA_TOL = {"float32": 2e-5, "bfloat16": 0.05}
+SWA_BF16_STEP, SWA_BF16_ATOL = 2.0**-7, 1e-6
+# the rolling wrap: 2 layers at full width, window 256, fp32, 600 tokens
+WRAP_LAYERS, WRAP_WINDOW, WRAP_B, WRAP_STEPS, WRAP_EVERY = 2, 256, 2, 600, 50
 
 # Phase 5 tolerances, GPU (kernels, cuDNN, fp32) against CPU (plain, fp32),
 # for one epoch from the same state.  The two run different convolution
@@ -296,32 +330,39 @@ def check_logits(torch, logits, shape, what):
         raise AssertionError(f"{what}: logits of shape {tuple(logits.shape)} (want {shape}) or non-finite")
 
 
-def phase_serving(torch, dev, ops, smi):
-    """Phase 6: mamba2-1.3b serving at full width and depth on the card."""
+def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, prefix, plain_runs):
+    """Phases 6 and 7: ``arch`` served at full width and depth on the card.
+    (a) the prefill step on prefill_b x prefill_p through ``kernel``, timed,
+    counted and profiled; (b) the plain route, logits compared; (c) requests
+    stepped through the serve step, then greedy tokens; (d) prefill against
+    decode at REQ_P in bf16 and in an fp32 copy of the weights; (e) peak
+    memory.  Phase names start with ``prefix``."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import decoder
 
-    cfg = get_config("mamba2-1.3b")
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     vocab = cfg.vocab_size
+    bf16_rtol, bf16_cos, fp32_rtol = LOGITS_LIMITS[arch]
     t0 = time.perf_counter()
     params = decoder.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in flat_tensors(params))
     params_gb = sum(t.numel() * t.element_size() for t in flat_tensors(params)) / 1e9
     log(json.dumps({
-        "phase": "serving_init", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "vocab": vocab, "dtype": str(cfg.dtype), "params": n_params, "param_count_analytic": cfg.param_count(),
-        "init_s": time.perf_counter() - t0,
+        "phase": f"{prefix}serving_init", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "window": cfg.sliding_window, "vocab": vocab, "dtype": str(cfg.dtype), "params": n_params,
+        "param_count_analytic": cfg.param_count(), "params_gb": params_gb, "init_s": time.perf_counter() - t0,
     }))
     g = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, vocab, (PREFILL_B, PREFILL_P), generator=g, device=dev)
-    batch = {"tokens": tokens}
-    shape = (PREFILL_B, 1, vocab)
+    batch = {"tokens": torch.randint(0, vocab, (prefill_b, prefill_p), generator=g, device=dev)}
+    shape = (prefill_b, 1, vocab)
 
-    # (a) the main path: the prefill step through the ssd_scan kernel
+    # (a) the main path: the prefill step through the kernel
     prefill = make_prefill_step(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -338,28 +379,29 @@ def phase_serving(torch, dev, ops, smi):
         times.append((time.perf_counter() - t0) * 1e3)
     launches = ops.launch_counts()
     peak_prefill = torch.cuda.max_memory_allocated() / 1e9
-    want = {"vaoi_distance": 0, "fedavg_reduce": 0, "ssd_scan": cfg.num_layers * PREFILL_RUNS}
+    want = {name: 0 for name in launches}
+    want[kernel] = cfg.num_layers * PREFILL_RUNS
     if launches != want:
-        raise AssertionError(f"prefill launches {launches} != {want}: the main path missed the ssd_scan kernel")
+        raise AssertionError(f"prefill launches {launches} != {want}: the main path missed the {kernel} kernel")
     check_logits(torch, logits, shape, "prefill")
     median_ms = statistics.median(times)
     log(json.dumps({
-        "phase": "serving_prefill", "batch": PREFILL_B, "prompt_len": PREFILL_P, "runs_ms": times,
+        "phase": f"{prefix}serving_prefill", "batch": prefill_b, "prompt_len": prefill_p, "runs_ms": times,
         "median_ms": median_ms, "first_call_ms": first_ms,
-        "prefill_tokens_per_s": PREFILL_B * PREFILL_P / (median_ms / 1e3),
-        "launches": launches, "ssd_scan_launches_per_prefill": launches["ssd_scan"] / PREFILL_RUNS,
+        "prefill_tokens_per_s": prefill_b * prefill_p / (median_ms / 1e3),
+        "launches": launches, f"{kernel}_launches_per_prefill": launches[kernel] / PREFILL_RUNS,
         "power_limit": smi,
     }))
-    log(json.dumps({"phase": "serving_prefill_profile",
+    log(json.dumps({"phase": f"{prefix}serving_prefill_profile",
                     **profile_run(torch, lambda: prefill(params, batch), dev, "lm.")}))
 
-    # (b) the same prefill through the plain chunked scan
+    # (b) the same prefill through the plain route
     plain = make_prefill_step(cfg, use_kernel=False)
     plain(params, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain_times = []
-    for _ in range(3):
+    for _ in range(plain_runs):
         t0 = time.perf_counter()
         logits_plain = plain(params, batch)
         torch.cuda.synchronize()
@@ -367,13 +409,13 @@ def phase_serving(torch, dev, ops, smi):
     peak_plain = torch.cuda.max_memory_allocated() / 1e9
     check_logits(torch, logits_plain, shape, "plain prefill")
     cmp = compare_logits(torch, logits, logits_plain)
-    log(json.dumps({"phase": "serving_prefill_plain", "median_ms": statistics.median(plain_times),
-                    "runs_ms": plain_times, "rtol": BF16_LOGITS_RTOL, "min_cosine_allowed": BF16_MIN_COSINE, **cmp}))
-    if not (cmp["rel_err"] <= BF16_LOGITS_RTOL and cmp["min_cosine"] >= BF16_MIN_COSINE):
-        raise AssertionError(f"prefill logits through the kernel and the plain scan disagree: {cmp}")
-    del logits_plain
+    log(json.dumps({"phase": f"{prefix}serving_prefill_plain", "median_ms": statistics.median(plain_times),
+                    "runs_ms": plain_times, "rtol": bf16_rtol, "min_cosine_allowed": bf16_cos, **cmp}))
+    if not (cmp["rel_err"] <= bf16_rtol and cmp["min_cosine"] >= bf16_cos):
+        raise AssertionError(f"prefill logits through the kernel and the plain route disagree: {cmp}")
+    del logits_plain, batch
 
-    # (c) requests as serve_demo runs them, and (d) prefill against the recurrence
+    # (c) requests as serve_demo runs them, and (d) prefill against decode
     torch.cuda.reset_peak_memory_stats()
     prompts = torch.randint(0, vocab, (REQ_B, REQ_P), generator=g, device=dev)
     last, cache, prompt_s = step_prompts(torch, cfg, params, prompts, dev, decoder, make_serve_step)
@@ -390,40 +432,181 @@ def phase_serving(torch, dev, ops, smi):
     decode_s = time.perf_counter() - t0
     check_logits(torch, logits, (REQ_B, 1, vocab), "decode")
     pos = torch.full((REQ_B,), REQ_P + REQ_G, device=dev)
-    log(json.dumps({"phase": "serving_decode_profile",
+    log(json.dumps({"phase": f"{prefix}serving_decode_profile",
                     **profile_run(torch, lambda: step(params, cache, tok, pos), dev, "lm.")}))
     out = torch.cat(generated, dim=1)
     if out.shape != (REQ_B, REQ_G + 1) or not bool(((out >= 0) & (out < vocab)).all()):
         raise AssertionError(f"greedy decode produced {tuple(out.shape)} tokens outside the vocab")
     log(json.dumps({
-        "phase": "serving_requests", "batch": REQ_B, "prompt_len": REQ_P, "greedy_tokens": REQ_G,
+        "phase": f"{prefix}serving_requests", "batch": REQ_B, "prompt_len": REQ_P, "greedy_tokens": REQ_G,
+        "cache_width": cache[0]["k"].shape[1] if "k" in cache[0] else None,
         "prompt_step_s": prompt_s, "prompt_tokens_per_s": REQ_B * REQ_P / prompt_s,
         "decode_ms_per_step": decode_s / REQ_G * 1e3, "decode_tokens_per_s": REQ_B * REQ_G / decode_s,
         "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "first_tokens": out[:, :8].tolist(),
         "power_limit": smi,
     }))
-    rows = []
-    for c, p in ((cfg, params), (dataclasses.replace(cfg, dtype=torch.float32), None)):
+    del cache
+    for c in (cfg, dataclasses.replace(cfg, dtype=torch.float32)):
         name = str(c.dtype).replace("torch.", "")
-        if p is None:  # the same weights in fp32
+        p = params
+        if c.dtype == torch.float32:  # the same weights in fp32
             p = map_tensors(params, lambda t: t.float())
             last, _, _ = step_prompts(torch, c, p, prompts, dev, decoder, make_serve_step)
         pre = make_prefill_step(c)(p, {"tokens": prompts})
         check_logits(torch, pre, (REQ_B, 1, vocab), f"{name} prefill at P={REQ_P}")
-        tol, cos = (FP32_LOGITS_RTOL, 0.0) if c.dtype == torch.float32 else (BF16_LOGITS_RTOL, BF16_MIN_COSINE)
-        row = {"phase": "serving_prefill_vs_recurrence", "dtype": name, "prompt_len": REQ_P, "rtol": tol,
+        tol, cos = (fp32_rtol, 0.0) if c.dtype == torch.float32 else (bf16_rtol, bf16_cos)
+        row = {"phase": f"{prefix}serving_prefill_vs_decode", "dtype": name, "prompt_len": REQ_P, "rtol": tol,
                "min_cosine_allowed": cos, **compare_logits(torch, pre, last)}
         log(json.dumps(row))
         if not (row["rel_err"] <= tol and row["min_cosine"] >= cos):
             raise AssertionError(f"{name}: prefill logits and the serve step's disagree: {row}")
-        rows.append(row)
         del p, pre
 
     # (e) peak memory
-    log(json.dumps({"phase": "serving_memory", "peak_prefill_gb": peak_prefill, "peak_plain_prefill_gb": peak_plain,
-                    "params_gb": params_gb, "power_limit": smi}))
+    log(json.dumps({"phase": f"{prefix}serving_memory", "peak_prefill_gb": peak_prefill,
+                    "peak_plain_prefill_gb": peak_plain, "params_gb": params_gb, "power_limit": smi}))
+    del params, last
+    torch.cuda.empty_cache()
     return launches
 
+
+def swa_work(b, h, hkv, s, d, window, causal, elt):
+    """Bytes and fp32 operations attention needs: q and o once, k and v
+    once at their Hkv heads; 4·D operations (QKᵀ and PV) for every live
+    (query, key) pair of this mask."""
+    pairs = sum(
+        (i if causal else s - 1) - (max(0, i - window + 1) if window > 0 else 0) + 1 for i in range(s)
+    )
+    return 2 * b * s * d * (h + hkv) * elt, b * h * pairs * 4 * d
+
+
+def swa_inputs(torch, g, b, h, hkv, s, d, dtype, dev):
+    """q (b, h, s, d) and k, v (b, hkv, s, d) as (B, H, S, D) views of
+    (B, S, H, D) tensors, the layout ``attn_forward`` passes."""
+    return tuple(
+        torch.randn(b, s, n, d, generator=g).to(dtype).to(dev).transpose(1, 2) for n in (h, hkv, hkv)
+    )
+
+
+def library_attention_ms(torch, q, k, v, window):
+    """One PyTorch call computing the same function: SDPA with an (S, S)
+    boolean band mask and GQA.  If it cannot run at this S, halve S until it
+    can; returns (ms, S it ran at, why it could not run at the full S)."""
+    F = torch.nn.functional
+    s, why = q.shape[2], None
+    while s >= 64:
+        try:
+            args = [t[:, :, :s] for t in (q, k, v)]
+            i = torch.arange(s, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            return time_ms(lambda: F.scaled_dot_product_attention(*args, attn_mask=mask, enable_gqa=True),
+                           iters=10, warmup=2), s, why
+        except (RuntimeError, TypeError) as e:  # the yardstick only; the port never calls SDPA
+            why = why or repr(e)[:300]
+            s //= 2
+    return None, None, why
+
+
+def swa_error(got, want):
+    """(max |got - want|, whether it is within SWA_TOL, and in bf16 within
+    a rounding step of each element)."""
+    name = str(want.dtype).replace("torch.", "")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = got.dtype == want.dtype and err <= SWA_TOL[name]
+    if name == "bfloat16":
+        ok = ok and bool((diff <= SWA_BF16_STEP * want.float().abs() + SWA_BF16_ATOL).all())
+    return err, ok
+
+
+def phase_swa_kernel(torch, ref, kern_swa, dev):
+    """Phase 3 (swa_attention): StarCoder2-3B's prefill shape, timed, then a
+    ragged sweep (S below, at and past a 64-row tile, GQA groups, windows
+    below a tile, at it, past it and past S, causal or not, fp32 and bf16)."""
+    g = torch.Generator().manual_seed(3)
+    b, h, hkv, s, d, w = SC_PREFILL_B, 24, 2, SC_PREFILL_P, 128, 4096
+    q, k, v = swa_inputs(torch, g, b, h, hkv, s, d, torch.bfloat16, dev)
+    err, ok = swa_error(kern_swa(q, k, v, window=w), ref.swa_attention_ref(q, k, v, window=w))
+    # the same inputs in fp32, still strided: the long key loop and the
+    # 4096-wide mask held at 2e-5
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    err32, ok32 = swa_error(kern_swa(q32, k32, v32, window=w), ref.swa_attention_ref(q32, k32, v32, window=w))
+    del q32, k32, v32
+    if not (ok and ok32):
+        raise AssertionError(f"swa_attention at the prefill shape disagrees with its plain version: "
+                             f"bf16 {err}, fp32 {err32}")
+    nbytes, flops = swa_work(b, h, hkv, s, d, w, True, 2)
+    b_ms, b_by = bound(nbytes, flops)
+    lib_ms, lib_s, lib_why = library_attention_ms(torch, q, k, v, w)
+    row = {
+        "kernel": "swa_attention", "shape": [b, h, hkv, s, d, w], "dtype": "bfloat16, strided (B, S, H, D) views",
+        "max_abs_err": err, "tol": SWA_TOL["bfloat16"], "bf16_step_limit": [SWA_BF16_STEP, SWA_BF16_ATOL],
+        "max_abs_err_fp32": err32, "tol_fp32": SWA_TOL["float32"],
+        "ms": time_ms(lambda: kern_swa(q, k, v, window=w), iters=10, warmup=2),
+        "plain_ms": time_ms(lambda: ref.swa_attention_ref(q, k, v, window=w), iters=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_tf32_ms": max(nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3,
+        "bound_bf16_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+        "library_ms": lib_ms, "library": "scaled_dot_product_attention(attn_mask=band, enable_gqa=True)",
+        "library_seq": lib_s, "library_failed_at_full_seq": lib_why,
+    }
+    log(json.dumps(row))
+    del q, k, v
+
+    n_checked, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    shapes = ((1, 2, 2, 128, 64), (2, 4, 2, 200, 64), (1, 6, 2, 37, 32), (1, 3, 1, 1, 128), (2, 8, 2, 300, 128),
+              (1, 4, 4, 65, 32))
+    for (b, h, hkv, s, d), w, causal, dtype in itertools.product(
+        shapes, (0, 5, 64, 100, 1000), (True, False), (torch.float32, torch.bfloat16)
+    ):
+        name = str(dtype).replace("torch.", "")
+        q, k, v = swa_inputs(torch, g, b, h, hkv, s, d, dtype, dev)
+        e, ok = swa_error(kern_swa(q, k, v, window=w, causal=causal),
+                          ref.swa_attention_ref(q, k, v, window=w, causal=causal))
+        if not ok:
+            raise AssertionError(f"swa_attention {(b, h, hkv, s, d, w, causal, name)} disagrees: {e}")
+        worst[name] = max(worst[name], e)
+        n_checked += 1
+    torch.cuda.synchronize()
+    log(json.dumps({"phase": "swa_kernel_sweep", "cases": n_checked, "max_abs_err": worst, "tol": SWA_TOL,
+                    "ok": True}))
+    return row
+
+
+def phase_rolling_wrap(torch, dev):
+    """Phase 7 (f): starcoder2-3b's rolling KV cache past its wrap, at full
+    width: 2 layers, window 256, fp32, every 50th of 600 steps' logits held
+    against a kernel-route prefill of the same prefix."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import decoder
+
+    cfg = get_config("starcoder2-3b")
+    fp32_rtol = LOGITS_LIMITS["starcoder2-3b"][2]
+    wcfg = dataclasses.replace(cfg, num_layers=WRAP_LAYERS, sliding_window=WRAP_WINDOW, dtype=torch.float32)
+    wparams = decoder.init_params(wcfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (WRAP_B, WRAP_STEPS), generator=g, device=dev)
+    step, pre = make_serve_step(wcfg), make_prefill_step(wcfg)
+    cache = decoder.init_cache(wcfg, WRAP_B, WRAP_STEPS, device=dev)
+    rows = []
+    for t in range(WRAP_STEPS):
+        logits, cache = step(wparams, cache, tokens[:, t : t + 1], torch.full((WRAP_B,), t, device=dev))
+        if (t + 1) % WRAP_EVERY == 0:
+            rows.append({"t": t, **compare_logits(torch, pre(wparams, {"tokens": tokens[:, : t + 1]}), logits)})
+    worst = max(r["rel_err"] for r in rows)
+    log(json.dumps({
+        "phase": "sc_rolling_wrap", "layers": WRAP_LAYERS, "window": WRAP_WINDOW,
+        "cache_width": cache[0]["k"].shape[1], "steps": WRAP_STEPS, "checked_steps": [r["t"] for r in rows],
+        "max_rel_err": worst, "min_cosine": min(r["min_cosine"] for r in rows), "rtol": fp32_rtol,
+    }))
+    if not (cache[0]["k"].shape[1] == WRAP_WINDOW and worst <= fp32_rtol):
+        raise AssertionError(f"the rolling cache past its wrap disagrees with the prefill: {rows}")
+    del wparams, cache
+    torch.cuda.empty_cache()
 
 def flat_tensors(tree):
     if isinstance(tree, dict):
@@ -585,6 +768,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce as kern_fedavg
     from repro_torch.kernels.ssd_scan import ssd_scan as kern_ssd
+    from repro_torch.kernels.swa_attention import swa_attention as kern_swa
     from repro_torch.kernels.vaoi_distance import vaoi_distance as kern_vaoi
 
     # --- phase 1: device ---
@@ -608,6 +792,7 @@ def main() -> int:
     # --- phase 3: kernels against their plain versions ---
     kresults = phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev)
     kresults["ssd_scan"] = [phase_ssd_kernel(torch, ref, kern_ssd, dev)]
+    kresults["swa_attention"] = [phase_swa_kernel(torch, ref, kern_swa, dev)]
 
     # --- phase 4: the slice on the card ---
     T = args.epochs
@@ -624,7 +809,7 @@ def main() -> int:
     gpu_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"vaoi_distance": T, "fedavg_reduce": 2 * T, "ssd_scan": 0}
+    want = {"vaoi_distance": T, "fedavg_reduce": 2 * T, "ssd_scan": 0, "swa_attention": 0}
     log(json.dumps({"phase": "slice_gpu", "launches": launches, "expected": want}))
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} on the main path")
@@ -653,9 +838,15 @@ def main() -> int:
     log(json.dumps(cmp))
 
     # --- phase 6: the serving slice, mamba2-1.3b at full width ---
-    serve_launches = phase_serving(torch, dev, ops, smi)
+    serve_launches = phase_lm_serving(torch, dev, ops, smi, "mamba2-1.3b", PREFILL_B, PREFILL_P, "ssd_scan",
+                                      prefix="", plain_runs=3)
 
-    # --- phase 7: every ported kernel, then the result ---
+    # --- phase 7: the attention slice, starcoder2-3b at full width ---
+    sc_launches = phase_lm_serving(torch, dev, ops, smi, "starcoder2-3b", SC_PREFILL_B, SC_PREFILL_P,
+                                   "swa_attention", prefix="sc_", plain_runs=2)
+    phase_rolling_wrap(torch, dev)
+
+    # --- phase 8: every ported kernel, then the result ---
     def entry(name, source, replaces, rows, count):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -672,12 +863,18 @@ def main() -> int:
                 kresults["ssd_scan"], serve_launches)
     ssd.update(launches_per_prefill=serve_launches["ssd_scan"] // PREFILL_RUNS,
                bound_tf32_ms=kresults["ssd_scan"][0]["bound_tf32_ms"])
+    swa = entry("swa_attention", "src/repro_torch/csrc/swa_attention.cu", "src/repro/kernels/swa_attention.py:79",
+                kresults["swa_attention"], sc_launches)
+    swa.update(launches_per_prefill=sc_launches["swa_attention"] // PREFILL_RUNS,
+               bound_tf32_ms=kresults["swa_attention"][0]["bound_tf32_ms"],
+               bound_bf16_ms=kresults["swa_attention"][0]["bound_bf16_ms"])
     log(json.dumps({"kernels": [
         entry("vaoi_distance", "src/repro_torch/csrc/vaoi_distance.cu",
               "src/repro/kernels/vaoi_distance.py:49", kresults["vaoi_distance"], launches),
         entry("fedavg_reduce", "src/repro_torch/csrc/fedavg_reduce.cu",
               "src/repro/kernels/fedavg_reduce.py:36", kresults["fedavg_reduce"], launches),
         ssd,
+        swa,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

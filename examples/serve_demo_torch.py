@@ -1,11 +1,14 @@
 """Batched serving demo on the PyTorch/CUDA port: decode-based prefill, then
-greedy decode against the SSM cache, with the reduced config.
+greedy decode against the SSM or KV cache, with the reduced config.
 
   PYTHONPATH=src python examples/serve_demo_torch.py --tokens 16               # on the GPU
   PYTHONPATH=src python examples/serve_demo_torch.py --tokens 16 --device cpu
+  PYTHONPATH=src python examples/serve_demo_torch.py --arch starcoder2-3b --device cpu
 
 The counterpart of ``examples/serve_demo.py``.  The port has the SSM family
-only (``mamba2-1.3b``); other archs raise until their layers are ported.
+(``mamba2-1.3b``) and dense attention (``starcoder2-3b``, whose sliding
+window makes its KV cache a rolling buffer); other archs raise until their
+layers are ported.
 """
 import argparse
 import time
@@ -20,7 +23,7 @@ from repro_torch.models import decoder
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="mamba2-1.3b", help="mamba2-1.3b or starcoder2-3b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--tokens", type=int, default=16)

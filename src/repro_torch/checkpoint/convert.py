@@ -175,7 +175,8 @@ def decoder_params_to_reference(params: Mapping[str, Any], cfg) -> Dict[str, Any
 
 def decoder_cache_from_reference(np_cache: Sequence[Any], cfg, device: str | torch.device | None = None):
     """Reference decode cache (a tuple of per-position dicts stacked over
-    blocks: ``conv`` in the model dtype, ``ssm`` fp32) -> one dict per layer."""
+    blocks: ``k``/``v`` (B, W, Hkv, hd) for attention layers, ``conv`` in the
+    model dtype and ``ssm`` fp32 for SSM layers) -> one dict per layer."""
     return _unstack_blocks(np_cache, cfg.num_layers, resolve_device(device))
 
 

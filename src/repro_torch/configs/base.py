@@ -176,8 +176,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 # The port's arch modules; the other reference archs wait for their model
-# families (ROADMAP queue 1).
-_ARCH_MODULES = ["mamba2_1_3b"]
+# families or their config files (ROADMAP queue 1).
+_ARCH_MODULES = ["mamba2_1_3b", "starcoder2_3b"]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"  # listed in .gitignore
-KERNELS = ("vaoi_distance", "fedavg_reduce", "ssd_scan")
+KERNELS = ("vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

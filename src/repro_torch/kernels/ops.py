@@ -10,9 +10,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce as _fedavg_reduce
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
+from repro_torch.kernels.swa_attention import swa_attention as _swa_attention
 from repro_torch.kernels.vaoi_distance import vaoi_distance as _vaoi_distance
 
-KERNELS = {"vaoi_distance": _vaoi_distance, "fedavg_reduce": _fedavg_reduce, "ssd_scan": _ssd_scan}
+KERNELS = {
+    "vaoi_distance": _vaoi_distance,
+    "fedavg_reduce": _fedavg_reduce,
+    "ssd_scan": _ssd_scan,
+    "swa_attention": _swa_attention,
+}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -44,6 +50,14 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
     return _ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
 
 
+def swa_attention(q, k, v, window: int = 0, causal: bool = True):
+    """Causal / sliding-window attention: q (B, H, S, D), k and v
+    (B, Hkv, S, D) with Hkv dividing H -> (B, H, S, D) in q's dtype."""
+    if _on_cpu(q, k, v):
+        return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    return _swa_attention(q, k, v, window=window, causal=causal)
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -53,4 +67,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["vaoi_distance", "fedavg_reduce", "ssd_scan", "launch_counts", "reset_launch_counts", "ref"]
+__all__ = [
+    "vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention", "launch_counts", "reset_launch_counts", "ref",
+]

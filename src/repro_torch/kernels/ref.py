@@ -2,9 +2,13 @@
 truth each Hopper kernel is held against on the card."""
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+# swa_attention_ref's rows per pass: bounds its (B, H, chunk, S) scores
+REF_Q_CHUNK = 1024
 
 
 def vaoi_distance_ref(
@@ -24,6 +28,37 @@ def vaoi_distance_ref(
 def fedavg_reduce_ref(msgs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted aggregation: msgs (K, P), weights (K,) -> (P,) in fp32."""
     return torch.einsum("kp,k->p", msgs.float(), weights.float())
+
+
+def swa_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int = 0, causal: bool = True
+) -> torch.Tensor:
+    """Sliding-window attention oracle.  q: (B, H, S, D); k, v: (B, Hkv, S, D)
+    with Hkv dividing H; query head h reads KV head h // (H / Hkv), the
+    grouping of the models' GQA.  window=0 => full.  Returns (B, H, S, D) in
+    q's dtype.
+
+    fp32 scores over √D, -inf outside the causal/window band, softmax, then
+    PV.  Keys at or past S do not exist, so nothing is padded.  The rows go
+    REF_Q_CHUNK at a time, which does not change the result."""
+    B, H, S, D = q.shape
+    g = H // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    jk = torch.arange(S, device=q.device)[None, :]
+    out = torch.empty(B, H, S, D, dtype=q.dtype, device=q.device)
+    for i0 in range(0, S, REF_Q_CHUNK):
+        qf = q[:, :, i0 : i0 + REF_Q_CHUNK].float()
+        scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / math.sqrt(D)
+        iq = torch.arange(i0, i0 + qf.shape[2], device=q.device)[:, None]
+        mask = torch.ones(qf.shape[2], S, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= jk <= iq
+        if window > 0:
+            mask &= jk > iq - window
+        attn = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, :, i0 : i0 + qf.shape[2]] = torch.einsum("bhqk,bhkd->bhqd", attn, vf).to(q.dtype)
+    return out
 
 
 def ssd_scan_ref(

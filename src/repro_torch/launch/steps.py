@@ -2,8 +2,9 @@
 and serve steps.
 
 prefill    : full-sequence forward, last-position logits (serving prefill),
-             with the scan through the ``ssd_scan`` kernel by default.
-serve_step : single-token decode against the SSM cache.
+             with the scan through the ``ssd_scan`` kernel and attention
+             through the ``swa_attention`` kernel by default.
+serve_step : single-token decode against the SSM and KV caches.
 
 Both run under ``torch.inference_mode()``.  The train step waits for the
 training slice (ROADMAP queue 1 #12).
@@ -35,9 +36,9 @@ def make_prefill_step(cfg: ModelConfig, use_kernel: bool = True):
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, rolling: bool = False):
     def serve_step(params, cache, tokens: torch.Tensor, positions: torch.Tensor):
         with torch.inference_mode():
-            return decoder.decode_step(cfg, params, cache, tokens, positions)
+            return decoder.decode_step(cfg, params, cache, tokens, positions, rolling=rolling)
 
     return serve_step

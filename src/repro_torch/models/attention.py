@@ -1,0 +1,216 @@
+"""GQA attention: the port of ``repro.models.attention`` for decoder layers.
+
+Full-sequence causal / sliding-window attention for prefill, KV-cache decode
+and the rolling-window cache for long-context decode.  Weights keep the
+reference's layout (dense weights (in, out), ``x @ W``) and activations its
+(B, S, H, hd) layout.  ``attn_forward(use_kernel=False)`` computes exactly
+the reference's masked-softmax path; ``use_kernel=True`` sends the attention
+to ``kernels.ops.swa_attention`` (the Hopper kernel on CUDA tensors), which
+computes the same function with fp32 scores and probabilities.
+Cross-attention waits for whisper (ROADMAP queue 1 #11).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import Params, apply_rope, dense_init
+
+_CROSS = "cross-attention (encoder_out) is not ported: it waits for whisper (ROADMAP queue 1 #11)"
+
+
+def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
+    """One layer's weights, drawn from ``generator`` on its device."""
+    d, nh, nkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = generator.device
+    p: Params = {
+        "wq": dense_init(generator, d, nh * hd, dtype),
+        "wk": dense_init(generator, d, nkv * hd, dtype),
+        "wv": dense_init(generator, d, nkv * hd, dtype),
+        "wo": dense_init(generator, nh * hd, d, dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(nh * hd, dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(nkv * hd, dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(nkv * hd, dtype=dtype, device=dev)
+    if cfg.attn_out_bias:
+        p["bo"] = torch.zeros(d, dtype=dtype, device=dev)
+    return p
+
+
+def _project_qkv(cfg: ModelConfig, p: Params, xq: torch.Tensor, xkv: torch.Tensor):
+    B = xq.shape[0]
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = xq @ p["wq"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, xq.shape[1], nh, hd)
+    k = k.reshape(B, xkv.shape[1], nkv, hd)
+    v = v.reshape(B, xkv.shape[1], nkv, hd)
+    return q, k, v
+
+
+@functools.cache
+def _sqrt_in(hd: int, dtype: torch.dtype) -> float:
+    """√hd in fp32, rounded to ``dtype``, as the reference's
+    ``jnp.sqrt(hd).astype(q.dtype)`` (11.3125 in bf16 for hd = 128)."""
+    return torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype).item()
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q (B,Sq,nh,hd), k (B,Sk,nkv,hd) -> scores (B,nh,Sq,Sk) in q's dtype,
+    with GQA grouping: query head h reads KV head h // (nh / nkv)."""
+    B, Sq, nh, hd = q.shape
+    nkv = k.shape[2]
+    g = nh // nkv
+    qg = q.reshape(B, Sq, nkv, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) / _sqrt_in(hd, q.dtype)
+    return s.reshape(B, nh, Sq, k.shape[1])
+
+
+def _gqa_out(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """attn (B,nh,Sq,Sk), v (B,Sk,nkv,hd) -> (B,Sq,nh*hd)."""
+    B, nh, Sq, Sk = attn.shape
+    nkv, hd = v.shape[2], v.shape[3]
+    g = nh // nkv
+    a = attn.reshape(B, nkv, g, Sq, Sk)
+    o = torch.einsum("bkgqs,bskh->bqkgh", a, v)
+    return o.reshape(B, Sq, nh * hd)
+
+
+# q-chunked attention above this sequence length: the (S, S) score matrix is
+# never materialised; each chunk holds only (B, nh, Q_CHUNK, S).
+CHUNK_THRESHOLD = 1024
+Q_CHUNK = 512
+
+
+def _masked_softmax_attn(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int, causal: bool, window: int
+) -> torch.Tensor:
+    """q: (B,Cq,nh,hd); k,v: (B,Sk,nkv,hd). Rows are absolute position
+    q_offset + arange(Cq). Returns (B, Cq, nh*hd)."""
+    scores = _gqa_scores(q, k).float()
+    Cq, Sk = scores.shape[-2], scores.shape[-1]
+    if causal:
+        iq = q_offset + torch.arange(Cq, device=q.device)[:, None]
+        jk = torch.arange(Sk, device=q.device)[None, :]
+        mask = jk <= iq
+        if window > 0:
+            mask &= jk > iq - window
+        scores = scores.masked_fill(~mask, -1e30)
+    attn = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _gqa_out(attn, v)
+
+
+def attn_forward(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    causal: bool = True,
+    window: int = 0,
+    encoder_out: Optional[torch.Tensor] = None,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Full-sequence attention (prefill).  x: (B, S, d); positions: (S,) or
+    (B, S).  window > 0 => sliding-window causal.
+
+    ``use_kernel=True`` passes q and k after RoPE, and v, as (B, H, S, hd)
+    views of the projections to ``kernels.ops.swa_attention``, K/V at their
+    own Hkv heads; the output comes back as a view in (B, S, H, hd) order.
+    The reference applies no mask (and so no window) when not causal; the
+    kernel route follows it."""
+    if encoder_out is not None:
+        raise NotImplementedError(_CROSS)
+    with record_function("lm.qkv"):
+        q, k, v = _project_qkv(cfg, p, x, x)
+        if cfg.use_rope:
+            pos_b = positions if positions.dim() == 2 else positions[None, :]
+            q = apply_rope(q, pos_b, cfg.rope_theta)
+            k = apply_rope(k, pos_b, cfg.rope_theta)
+    B, S, nh, hd = q.shape
+    with record_function("lm.attn"):
+        if use_kernel:
+            o = kops.swa_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window if causal else 0, causal=causal
+            )
+            out = o.transpose(1, 2).reshape(B, S, nh * hd)
+        elif S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
+            # one q chunk at a time; never materialise the (S, S) scores
+            out = torch.cat(
+                [_masked_softmax_attn(q[:, i : i + Q_CHUNK], k, v, i, causal, window) for i in range(0, S, Q_CHUNK)],
+                dim=1,
+            )
+        else:
+            out = _masked_softmax_attn(q, k, v, 0, causal, window)
+    with record_function("lm.out_proj"):
+        out = out @ p["wo"]
+        if cfg.attn_out_bias:
+            out = out + p["bo"]
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Decode with a KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(
+    cfg: ModelConfig, batch: int, length: int, dtype: torch.dtype, device: torch.device
+) -> Dict[str, torch.Tensor]:
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros(batch, length, nkv, hd, dtype=dtype, device=device),
+        "v": torch.zeros(batch, length, nkv, hd, dtype=dtype, device=device),
+    }
+
+
+def attn_decode(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+    positions: torch.Tensor,
+    rolling: bool = False,
+    encoder_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. x: (B, 1, d); positions: (B,) absolute position of
+    the new token.  ``rolling=True`` treats the cache as a circular buffer of
+    width W; otherwise it is a linear cache of capacity >= positions+1.
+    Returns the output and a new cache (the old one is not written)."""
+    if encoder_out is not None:
+        raise NotImplementedError(_CROSS)
+    q, k, v = _project_qkv(cfg, p, x, x)  # (B,1,*,hd)
+    if cfg.use_rope:
+        q = apply_rope(q, positions[:, None], cfg.rope_theta)
+        k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    B, W = x.shape[0], cache["k"].shape[1]
+    slot = torch.remainder(positions, W) if rolling else torch.clamp(positions, max=W - 1)
+    # The reference writes with a one-hot blend, buf·(1 - onehot) + new·onehot;
+    # for finite inputs that is this write of the new row at ``slot``.
+    rows = (torch.arange(B, device=x.device), slot)
+    ck = cache["k"].index_put(rows, k[:, 0])
+    cv = cache["v"].index_put(rows, v[:, 0])
+    scores = _gqa_scores(q, ck).float()  # (B, nh, 1, W)
+    slots = torch.arange(W, device=x.device)[None, :]  # (1, W)
+    if rolling:
+        # slot j holds absolute position p_j = pos - ((pos - j) mod W); valid if
+        # p_j >= 0 (torch.remainder, like jnp.mod, takes the divisor's sign)
+        pj = positions[:, None] - torch.remainder(positions[:, None] - slots, W)
+        valid = pj >= 0
+    else:
+        valid = slots <= positions[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = _gqa_out(attn, cv) @ p["wo"]
+    if cfg.attn_out_bias:
+        out = out + p["bo"]
+    return out, {"k": ck, "v": cv}

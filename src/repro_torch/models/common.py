@@ -1,11 +1,13 @@
-"""Shared model building blocks: initialisers, norms and the loss (the part
-of ``repro.models.common`` that the CNN client and the Mamba2 stack need)."""
+"""Shared model building blocks: initialisers, norms, RoPE, the MLP and the
+loss (the part of ``repro.models.common`` that the CNN client, the Mamba2
+stack and the attention stack need)."""
 from __future__ import annotations
 
 import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
 
@@ -51,6 +53,50 @@ def apply_norm(kind: str, p: Params, x: torch.Tensor, eps: float = 1e-5) -> torc
     else:
         raise ValueError(kind)
     return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings: the two halves of the head dimension rotate
+# together (not interleaved pairs), in fp32, then cast back.
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated silu / plain gelu).  ``jax.nn.gelu`` defaults to the tanh
+# approximation, so this one does too (PyTorch's default is erf).
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(generator: torch.Generator, d: int, ff: int, act: str, dtype=torch.float32) -> Params:
+    p = {"w_up": dense_init(generator, d, ff, dtype), "w_down": dense_init(generator, ff, d, dtype)}
+    if act == "silu":  # gated
+        p["w_gate"] = dense_init(generator, d, ff, dtype)
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+    up = x @ p["w_up"]
+    if act == "silu":
+        h = F.silu(x @ p["w_gate"]) * up
+    elif act == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(act)
+    return h @ p["w_down"]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ def test_no_jax_or_reference_imports(path):
     [
         "run_simulation", "init_carry", "make_federated_dataset",
         "decoder.init_params", "decoder.init_cache", "decoder_params_from_reference",
+        "starcoder2.init_params", "starcoder2.init_cache", "starcoder2.params_from_reference",
     ],
 )
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
@@ -50,11 +51,15 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
     tiny = CNNConfig(image_size=8, conv_channels=(2, 2, 2, 2, 2, 2), fc_dims=(4, 4))
     cfg = EHFLConfig(num_clients=2, epochs=1, k=1)
     lm = reduced(get_config("mamba2-1.3b"))
+    sc = reduced(get_config("starcoder2-3b"))
     calls = {
         "run_simulation": lambda: run_simulation(cfg, cnn_backend(tiny), {}),
         "decoder.init_params": lambda: decoder.init_params(lm),
         "decoder.init_cache": lambda: decoder.init_cache(lm, 1, 8),
         "decoder_params_from_reference": lambda: decoder_params_from_reference({"blocks": ({},)}, lm),
+        "starcoder2.init_params": lambda: decoder.init_params(sc),
+        "starcoder2.init_cache": lambda: decoder.init_cache(sc, 1, 8),
+        "starcoder2.params_from_reference": lambda: decoder_params_from_reference({"blocks": ({},)}, sc),
         "init_carry": lambda: init_carry(cfg, cnn_backend(tiny)),
         "make_federated_dataset": lambda: make_federated_dataset(0, num_clients=2, samples_per_client=2),
     }
