@@ -8,11 +8,16 @@ result line):
 
 1. Device: the card's name and power limit as nvidia-smi reports them.
 2. Build: the four Hopper kernels from ``src/repro_torch/csrc`` with nvcc
-   (sm_90a), one nvcc per source, all started together.
+   (sm_90a), one nvcc per source, all started together; ptxas' registers,
+   spills and shared memory for each swa_attention instance (the bf16
+   tensor-core instance at D = 128 must not spill).
 3. Kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes (timed with CUDA events) and over ragged fp32/bf16 sweeps;
-   swa_attention at the prefill shape both in bf16 (each element within a
-   bf16 rounding step) and on the same inputs in fp32 (2e-5).
+   paths' shapes (timed with CUDA events; the sub-0.1 ms EHFL kernels also
+   by their device time under torch.profiler, without the wrapper's host
+   time) and over ragged fp32/bf16 sweeps; swa_attention at the prefill
+   shape both in bf16 on its tensor-core route (each element within
+   ``bf16_limit``; a plain version one key tile short of the window must
+   fail that limit) and on the same inputs in fp32 on its FMA route (2e-5).
 4. The EHFL slice: ``run_simulation`` at the paper's width (the 845,738-parameter
    CNN, N=100 clients x 300 samples, k=10, S=30, kappa=20, a 500-image test
    set) for T epochs on the GPU, with ``TorchDraws(seed=0)``.  Only the depth
@@ -39,7 +44,8 @@ result line):
    ``torch.Generator`` seed 0 on the card, after the Mamba2 weights are
    freed.  (a) ``make_prefill_step`` on B=1 x P=16384 (StarCoder2's
    training context): median time, prefill tokens/s, the swa_attention
-   counter at exactly 30 per call, one profiled prefill by ``lm.*`` range;
+   counter at exactly 30 per call, all on the tensor-core route, one
+   profiled prefill by ``lm.*`` range;
    (b) the same prefill through the plain masked-softmax route, logits
    compared; (c) requests: B=4 prompts of P=320 stepped through
    ``make_serve_step`` (a rolling KV cache), then 32 greedy tokens; (d) the
@@ -97,14 +103,16 @@ REQ_B, REQ_P, REQ_G = 4, 320, 32
 LOGITS_LIMITS = {"mamba2-1.3b": (0.2, 0.99, 1e-3), "starcoder2-3b": (0.05, 0.999, 1e-4)}
 
 # swa_attention against swa_attention_ref: both read the same inputs and keep
-# scores, probabilities and sums in fp32, so in fp32 they differ by summation
-# order (tests/test_kernels.py's 2e-5).  In bf16 both round the same fp32
-# value, give or take summation order, to the output: equal, or one bf16 step
-# apart, which is at most 2**-7 of the element.  So each bf16 element is held
-# to |got - ref| <= 2**-7 |ref| + 1e-6 (the 1e-6 covers fp32 summation order
-# where the element is near 0), inside test_kernels.py's 0.05 absolute.
+# scores, m, l and sums in fp32, so in fp32 (the FMA route) they differ by
+# summation order (tests/test_kernels.py's 2e-5).  The bf16 route (tensor
+# cores) also rounds each probability to bf16 before P V: each element is
+# held to kernels.swa_attention.bf16_limit, 2**-8 sum_j p_ij |v_j| (that
+# rounding's bound) + 2**-7 |ref| (a bf16 step of either output) + 1e-6,
+# inside test_kernels.py's 0.05 absolute.  The plain version with the window
+# one 64-key tile short (4032 for 4096) must exceed the same limit at the
+# prefill shape, so the limit tells a right kernel from a wrong one.
 SWA_TOL = {"float32": 2e-5, "bfloat16": 0.05}
-SWA_BF16_STEP, SWA_BF16_ATOL = 2.0**-7, 1e-6
+SWA_MUTANT_SHORT = 64
 # the rolling wrap: 2 layers at full width, window 256, fp32, 600 tokens
 WRAP_LAYERS, WRAP_WINDOW, WRAP_B, WRAP_STEPS, WRAP_EVERY = 2, 256, 2, 600, 50
 
@@ -151,8 +159,37 @@ def time_ms(fn, iters: int = 25, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def device_ms(fn, iters: int = 20) -> dict:
+    """Device time per call of ``fn``: the CUDA kernels' durations under
+    torch.profiler, summed over ``iters`` calls after one warm-up, so the
+    host time of a Python wrapper does not count; and kernels per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters,
+            "kernels_per_call": len(kernels) / iters}
+
+
+def add_device_ms(row: dict, kernel, library) -> None:
+    """Add to ``row`` the device time per call of the kernel's wrapper and of
+    the library call, and how many kernels each launches."""
+    dk, dl = device_ms(kernel), device_ms(library)
+    row.update(device_ms=dk["ms"], kernels_per_call=dk["kernels_per_call"], library_device_ms=dl["ms"],
+               library_kernels_per_call=dl["kernels_per_call"])
+
+
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
+    """The least time (ms) for this work: bytes over HBM bandwidth or
+    operations over ``peak``, whichever is larger, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -180,6 +217,7 @@ def phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: torch.linalg.vector_norm(v - h, dim=1)),
     }
+    add_device_ms(row, lambda: kern_vaoi(v, h, age, q, 0.5), lambda: torch.linalg.vector_norm(v - h, dim=1))
     log(json.dumps(row))
     results["vaoi_distance"] = [row]
 
@@ -203,6 +241,7 @@ def phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: torch.mv(msgs.T, w)),
         }
+        add_device_ms(row, lambda: kern_fedavg(msgs, w), lambda: torch.mv(msgs.T, w))
         log(json.dumps(row))
         results["fedavg_reduce"].append(row)
         del msgs, out_k, out_r
@@ -330,13 +369,15 @@ def check_logits(torch, logits, shape, what):
         raise AssertionError(f"{what}: logits of shape {tuple(logits.shape)} (want {shape}) or non-finite")
 
 
-def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, prefix, plain_runs):
+def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, prefix, plain_runs, route=None):
     """Phases 6 and 7: ``arch`` served at full width and depth on the card.
     (a) the prefill step on prefill_b x prefill_p through ``kernel``, timed,
-    counted and profiled; (b) the plain route, logits compared; (c) requests
-    stepped through the serve step, then greedy tokens; (d) prefill against
-    decode at REQ_P in bf16 and in an fp32 copy of the weights; (e) peak
-    memory.  Phase names start with ``prefix``."""
+    counted (every launch on ``route`` where the kernel has routes) and
+    profiled; (b) the plain route, logits compared; (c) requests stepped
+    through the serve step, then greedy tokens; (d) prefill against decode at
+    REQ_P in bf16 and in an fp32 copy of the weights; (e) peak memory.  Phase
+    names start with ``prefix``.  Returns the launch counts of (a) and their
+    split by route."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -377,12 +418,14 @@ def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, p
         logits = prefill(params, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = ops.launch_counts()
+    launches, routes = ops.launch_counts(), ops.route_launch_counts()
     peak_prefill = torch.cuda.max_memory_allocated() / 1e9
     want = {name: 0 for name in launches}
     want[kernel] = cfg.num_layers * PREFILL_RUNS
     if launches != want:
         raise AssertionError(f"prefill launches {launches} != {want}: the main path missed the {kernel} kernel")
+    if route is not None and routes[kernel][route] != want[kernel]:
+        raise AssertionError(f"prefill {kernel} launches by route {routes[kernel]}: all {want[kernel]} must be {route}")
     check_logits(torch, logits, shape, "prefill")
     median_ms = statistics.median(times)
     log(json.dumps({
@@ -390,7 +433,7 @@ def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, p
         "median_ms": median_ms, "first_call_ms": first_ms,
         "prefill_tokens_per_s": prefill_b * prefill_p / (median_ms / 1e3),
         "launches": launches, f"{kernel}_launches_per_prefill": launches[kernel] / PREFILL_RUNS,
-        "power_limit": smi,
+        "route_launches": routes.get(kernel), "power_limit": smi,
     }))
     log(json.dumps({"phase": f"{prefix}serving_prefill_profile",
                     **profile_run(torch, lambda: prefill(params, batch), dev, "lm.")}))
@@ -467,7 +510,7 @@ def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, p
                     "peak_plain_prefill_gb": peak_plain, "params_gb": params_gb, "power_limit": smi}))
     del params, last
     torch.cuda.empty_cache()
-    return launches
+    return launches, routes.get(kernel)
 
 
 def swa_work(b, h, hkv, s, d, window, causal, elt):
@@ -507,46 +550,73 @@ def library_attention_ms(torch, q, k, v, window):
     return None, None, why
 
 
-def swa_error(got, want):
-    """(max |got - want|, whether it is within SWA_TOL, and in bf16 within
-    a rounding step of each element)."""
+def swa_error(got, want, q, k, v, window, causal):
+    """(max |got - want|, in bf16 the largest ratio of |got - want| to
+    bf16_limit (None in fp32), whether both are within their limits)."""
+    from repro_torch.kernels.swa_attention import bf16_limit
+
     name = str(want.dtype).replace("torch.", "")
     diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
+    err, ratio = diff.max().item(), None
     ok = got.dtype == want.dtype and err <= SWA_TOL[name]
     if name == "bfloat16":
-        ok = ok and bool((diff <= SWA_BF16_STEP * want.float().abs() + SWA_BF16_ATOL).all())
-    return err, ok
+        ratio = (diff / bf16_limit(q, k, v, window=window, causal=causal, want=want)).max().item()
+        ok = ok and ratio <= 1.0
+    return err, ratio, ok
 
 
 def phase_swa_kernel(torch, ref, kern_swa, dev):
-    """Phase 3 (swa_attention): StarCoder2-3B's prefill shape, timed, then a
-    ragged sweep (S below, at and past a 64-row tile, GQA groups, windows
-    below a tile, at it, past it and past S, causal or not, fp32 and bf16)."""
+    """Phase 3 (swa_attention): StarCoder2-3B's prefill shape in bf16 (the
+    tensor-core route, held to bf16_limit, beside a plain version one key
+    tile short of the window that must fail it) and on the same inputs in
+    fp32 (the FMA route), timed; then a ragged sweep (S around the 64- and
+    128-row tiles, GQA groups 1 to 12, windows below a tile, at it, past it
+    and past S, causal or not, fp32 and bf16)."""
     g = torch.Generator().manual_seed(3)
     b, h, hkv, s, d, w = SC_PREFILL_B, 24, 2, SC_PREFILL_P, 128, 4096
     q, k, v = swa_inputs(torch, g, b, h, hkv, s, d, torch.bfloat16, dev)
-    err, ok = swa_error(kern_swa(q, k, v, window=w), ref.swa_attention_ref(q, k, v, window=w))
-    # the same inputs in fp32, still strided: the long key loop and the
-    # 4096-wide mask held at 2e-5
+    tc, fma = kern_swa.launches_tc, kern_swa.launches_fma
+    got = kern_swa(q, k, v, window=w)
+    want = ref.swa_attention_ref(q, k, v, window=w)
+    err, ratio, ok = swa_error(got, want, q, k, v, w, True)
+    # a kernel that dropped one tile of the window: the same limit must catch it
+    mutant = ref.swa_attention_ref(q, k, v, window=w - SWA_MUTANT_SHORT)
+    _, mutant_ratio, mutant_ok = swa_error(mutant, want, q, k, v, w, True)
+    del got, want, mutant
+    # the same inputs in fp32, still strided: the FMA route, its long key
+    # loop and the 4096-wide mask held at 2e-5
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    err32, ok32 = swa_error(kern_swa(q32, k32, v32, window=w), ref.swa_attention_ref(q32, k32, v32, window=w))
+    err32, _, ok32 = swa_error(kern_swa(q32, k32, v32, window=w), ref.swa_attention_ref(q32, k32, v32, window=w),
+                               q32, k32, v32, w, True)
+    routes = {"launches_tc": kern_swa.launches_tc - tc, "launches_fma": kern_swa.launches_fma - fma}
+    fp32_ms = time_ms(lambda: kern_swa(q32, k32, v32, window=w), iters=10, warmup=2)
     del q32, k32, v32
+    log(json.dumps({"phase": "swa_bf16_limit", "shape": [b, h, hkv, s, d, w], "kernel_max_ratio": ratio,
+                    "mutant_window": w - SWA_MUTANT_SHORT, "mutant_max_ratio": mutant_ratio,
+                    "mutant_fails_limit": not mutant_ok, "routes": routes}))
     if not (ok and ok32):
         raise AssertionError(f"swa_attention at the prefill shape disagrees with its plain version: "
-                             f"bf16 {err}, fp32 {err32}")
+                             f"bf16 {err} ({ratio} of bf16_limit), fp32 {err32}")
+    if mutant_ok:
+        raise AssertionError(f"a window {SWA_MUTANT_SHORT} keys short passes bf16_limit ({mutant_ratio}): "
+                             "the limit does not discriminate")
+    if routes != {"launches_tc": 1, "launches_fma": 1}:
+        raise AssertionError(f"bf16 must run the tensor-core route and fp32 the FMA route: {routes}")
     nbytes, flops = swa_work(b, h, hkv, s, d, w, True, 2)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
     lib_ms, lib_s, lib_why = library_attention_ms(torch, q, k, v, w)
+    ms = time_ms(lambda: kern_swa(q, k, v, window=w), iters=10, warmup=2)
     row = {
         "kernel": "swa_attention", "shape": [b, h, hkv, s, d, w], "dtype": "bfloat16, strided (B, S, H, D) views",
-        "max_abs_err": err, "tol": SWA_TOL["bfloat16"], "bf16_step_limit": [SWA_BF16_STEP, SWA_BF16_ATOL],
+        "route": "tensor cores (wgmma bf16, TMA ring)",
+        "max_abs_err": err, "tol": SWA_TOL["bfloat16"], "max_ratio_to_bf16_limit": ratio,
+        "mutant_max_ratio_to_bf16_limit": mutant_ratio,
         "max_abs_err_fp32": err32, "tol_fp32": SWA_TOL["float32"],
-        "ms": time_ms(lambda: kern_swa(q, k, v, window=w), iters=10, warmup=2),
+        "ms": ms, "bf16_bound_share": b_ms / ms,
         "plain_ms": time_ms(lambda: ref.swa_attention_ref(q, k, v, window=w), iters=3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "bound_tf32_ms": max(nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3,
-        "bound_bf16_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
+        "fp32_route_ms": fp32_ms,
+        "bound_fp32_route_ms": bound(swa_work(b, h, hkv, s, d, w, True, 4)[0], flops)[0],
         "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
         "library_ms": lib_ms, "library": "scaled_dot_product_attention(attn_mask=band, enable_gqa=True)",
         "library_seq": lib_s, "library_failed_at_full_seq": lib_why,
@@ -554,19 +624,22 @@ def phase_swa_kernel(torch, ref, kern_swa, dev):
     log(json.dumps(row))
     del q, k, v
 
-    n_checked, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    n_checked = 0
+    worst = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_ratio_to_limit": 0.0}
     shapes = ((1, 2, 2, 128, 64), (2, 4, 2, 200, 64), (1, 6, 2, 37, 32), (1, 3, 1, 1, 128), (2, 8, 2, 300, 128),
-              (1, 4, 4, 65, 32))
+              (1, 4, 4, 65, 32), (1, 12, 1, 127, 128), (1, 24, 2, 129, 64), (2, 12, 1, 257, 128), (1, 2, 2, 255, 32))
     for (b, h, hkv, s, d), w, causal, dtype in itertools.product(
-        shapes, (0, 5, 64, 100, 1000), (True, False), (torch.float32, torch.bfloat16)
+        shapes, (0, 5, 64, 100, 127, 128, 129, 1000), (True, False), (torch.float32, torch.bfloat16)
     ):
         name = str(dtype).replace("torch.", "")
         q, k, v = swa_inputs(torch, g, b, h, hkv, s, d, dtype, dev)
-        e, ok = swa_error(kern_swa(q, k, v, window=w, causal=causal),
-                          ref.swa_attention_ref(q, k, v, window=w, causal=causal))
+        e, r, ok = swa_error(kern_swa(q, k, v, window=w, causal=causal),
+                             ref.swa_attention_ref(q, k, v, window=w, causal=causal), q, k, v, w, causal)
         if not ok:
-            raise AssertionError(f"swa_attention {(b, h, hkv, s, d, w, causal, name)} disagrees: {e}")
+            raise AssertionError(f"swa_attention {(b, h, hkv, s, d, w, causal, name)} disagrees: {e} ({r})")
         worst[name] = max(worst[name], e)
+        if r is not None:
+            worst["bfloat16_ratio_to_limit"] = max(worst["bfloat16_ratio_to_limit"], r)
         n_checked += 1
     torch.cuda.synchronize()
     log(json.dumps({"phase": "swa_kernel_sweep", "cases": n_checked, "max_abs_err": worst, "tol": SWA_TOL,
@@ -788,6 +861,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s for {list(build.KERNELS)}")
+    swa_ptxas = build.ptxas_report("swa_attention")
+    for r in swa_ptxas:
+        log(json.dumps({"phase": "ptxas", "kernel": "swa_attention", **r}))
+    tc128 = [r for r in swa_ptxas if "swa_tc_kernelILi128E" in r["function"]]
+    if len(tc128) != 1 or tc128[0]["spill_stores"] or tc128[0]["spill_loads"]:
+        raise AssertionError(f"the bf16 tensor-core instance at D = 128 is missing or spills: {tc128}")
 
     # --- phase 3: kernels against their plain versions ---
     kresults = phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev)
@@ -838,17 +917,17 @@ def main() -> int:
     log(json.dumps(cmp))
 
     # --- phase 6: the serving slice, mamba2-1.3b at full width ---
-    serve_launches = phase_lm_serving(torch, dev, ops, smi, "mamba2-1.3b", PREFILL_B, PREFILL_P, "ssd_scan",
-                                      prefix="", plain_runs=3)
+    serve_launches, _ = phase_lm_serving(torch, dev, ops, smi, "mamba2-1.3b", PREFILL_B, PREFILL_P, "ssd_scan",
+                                         prefix="", plain_runs=3)
 
     # --- phase 7: the attention slice, starcoder2-3b at full width ---
-    sc_launches = phase_lm_serving(torch, dev, ops, smi, "starcoder2-3b", SC_PREFILL_B, SC_PREFILL_P,
-                                   "swa_attention", prefix="sc_", plain_runs=2)
+    sc_launches, sc_routes = phase_lm_serving(torch, dev, ops, smi, "starcoder2-3b", SC_PREFILL_B, SC_PREFILL_P,
+                                              "swa_attention", prefix="sc_", plain_runs=2, route="launches_tc")
     phase_rolling_wrap(torch, dev)
 
     # --- phase 8: every ported kernel, then the result ---
     def entry(name, source, replaces, rows, count):
-        return {
+        out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": count[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -858,6 +937,10 @@ def main() -> int:
             "library_ms": None if rows[0]["library_ms"] is None else sum(r["library_ms"] for r in rows),
             "calls_per_pass": len(rows), "shapes": [r["shape"] for r in rows],
         }
+        if "device_ms" in rows[0]:  # the kernels' own time, without the wrapper's host time
+            out.update(device_ms=sum(r["device_ms"] for r in rows),
+                       library_device_ms=sum(r["library_device_ms"] for r in rows))
+        return out
 
     ssd = entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:73",
                 kresults["ssd_scan"], serve_launches)
@@ -865,9 +948,10 @@ def main() -> int:
                bound_tf32_ms=kresults["ssd_scan"][0]["bound_tf32_ms"])
     swa = entry("swa_attention", "src/repro_torch/csrc/swa_attention.cu", "src/repro/kernels/swa_attention.py:79",
                 kresults["swa_attention"], sc_launches)
-    swa.update(launches_per_prefill=sc_launches["swa_attention"] // PREFILL_RUNS,
-               bound_tf32_ms=kresults["swa_attention"][0]["bound_tf32_ms"],
-               bound_bf16_ms=kresults["swa_attention"][0]["bound_bf16_ms"])
+    swa_row = kresults["swa_attention"][0]
+    swa.update(launches_per_prefill=sc_launches["swa_attention"] // PREFILL_RUNS, route_launches=sc_routes,
+               bf16_bound_share=swa_row["bf16_bound_share"], fp32_route_ms=swa_row["fp32_route_ms"],
+               bound_fp32_route_ms=swa_row["bound_fp32_route_ms"])
     log(json.dumps({"kernels": [
         entry("vaoi_distance", "src/repro_torch/csrc/vaoi_distance.cu",
               "src/repro/kernels/vaoi_distance.py:49", kresults["vaoi_distance"], launches),

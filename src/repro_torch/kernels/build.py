@@ -12,11 +12,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -69,12 +70,29 @@ def build(names: Sequence[str] = KERNELS, verbose: bool = False) -> Dict[str, fl
             failures.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        out.with_suffix(".log").write_text(log)  # nvcc's output, ptxas' report included
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         if verbose:
             print(f"[build] {name}: {seconds[name]:.2f} s\n{log.strip()}")
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """Per kernel function of a built library, what ``ptxas -v`` reported:
+    registers, spill stores and loads (bytes), static shared memory (bytes)."""
+    rows: List[dict] = []
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            rows.append({"function": m.group(1)})
+        elif rows and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            rows[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif rows and (m := re.search(r"Used (\d+) registers", line)):
+            rows[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return rows
 
 
 @functools.cache

@@ -58,15 +58,26 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True):
     return _swa_attention(q, k, v, window=window, causal=causal)
 
 
+# kernels with more than one route, and the counter of each
+ROUTES = {"swa_attention": ("launches_tc", "launches_fma")}
+
+
 def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_launch_counts() -> Dict[str, Dict[str, int]]:
+    return {name: {r: getattr(KERNELS[name], r) for r in routes} for name, routes in ROUTES.items()}
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for name, fn in KERNELS.items():
         fn.launches = 0
+        for r in ROUTES.get(name, ()):
+            setattr(fn, r, 0)
 
 
 __all__ = [
-    "vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention", "launch_counts", "reset_launch_counts", "ref",
+    "vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention", "launch_counts", "route_launch_counts",
+    "reset_launch_counts", "ref",
 ]

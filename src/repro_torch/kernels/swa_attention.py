@@ -4,10 +4,25 @@ Replaces ``src/repro/kernels/swa_attention.py::swa_attention`` (Pallas, body
 ``_make_kernel``).  Source: ``csrc/swa_attention.cu``, CUDA C++ for sm_90a.
 Bound: operations.  At StarCoder2-3B's prefill (1, 24, 16384, 128) with 2 KV
 heads and window 4096 the live (q, k) pairs need 721.6 GFLOP against 0.22 GB
-of traffic.  Design: one thread block per (batch, head, 64-row query tile)
-loops over the live key tiles only, in place of the TPU's sequential KV grid
-axis with its whole-block skip, keeping the online softmax's m, l and the
-accumulator in registers; fp32 FMA tiles read from shared memory.
+of traffic: 0.73 ms on the bf16 tensor cores.  One thread block per (batch,
+head, query tile) loops over the live key tiles only, in place of the TPU's
+sequential KV grid axis with its whole-block skip, keeping the online
+softmax's m, l and the accumulator in registers.
+
+Two routes, chosen by dtype, neither a fallback for the other (a route that
+fails to launch raises):
+
+- bf16, the model's route: ``wgmma`` on the tensor cores for Q K^T and P V
+  (fp32 accumulators; P rounded to bf16 before P V), K/V tiles loaded by TMA
+  into a two-stage ring.  TMA needs the last dim contiguous, a 16-byte-aligned
+  base and 16-byte-multiple strides: :func:`check_inputs` refuses the rest.
+  Counted in ``swa_attention.launches_tc``.
+- fp32, the correctness route: fp32 FMA tiles from shared memory, any strides.
+  Counted in ``swa_attention.launches_fma``.
+
+``swa_attention.launches`` counts both.  The bf16 route's one extra rounding
+bounds its distance to the plain version element by element:
+:func:`bf16_limit`.
 
 It computes what ``kernels.ref.swa_attention_ref`` computes, the oracle of
 the Pallas kernel: keys at or past S are masked (the Pallas kernel pads them
@@ -29,12 +44,19 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the kernel's instances: the reference configs' head dims and
 # tests/test_kernels.py's sweep
 HEAD_DIMS = (32, 64, 128)
+# the launcher's own error codes (csrc/swa_attention.cu)
+_ERRORS = {
+    -1: "no instance for this head dim",
+    -2: "the CUDA driver has no cuTensorMapEncodeTiled",
+    -3: "the CUDA driver refused a tensor map",
+    -4: "a layout the bf16 route does not take",
+}
 
 
 @functools.cache
@@ -66,6 +88,14 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int)
         raise ValueError(f"need 1 <= B, H <= 65535 and 1 <= S < 2**31; got {(b, h, s)}")
     if any(t.requires_grad for t in (q, k, v)):
         raise ValueError("swa_attention has no backward kernel: call it on inputs that do not require grad")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(-1) != 1:
+                raise ValueError(f"bf16 route (TMA): {name} needs a contiguous last dim; strides {t.stride()}")
+            if t.data_ptr() % 16:
+                raise ValueError(f"bf16 route (TMA): {name}'s base address must be a multiple of 16 bytes")
+            if any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+                raise ValueError(f"bf16 route (TMA): {name}'s strides {t.stride()} must be multiples of 16 bytes")
 
 
 def swa_attention(
@@ -92,9 +122,32 @@ def swa_attention(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"swa_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"swa_attention kernel launch failed: {_ERRORS.get(err, f'CUDA error {err}')}")
     swa_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        swa_attention.launches_tc += 1
+    else:
+        swa_attention.launches_fma += 1
     return o
 
 
-swa_attention.launches = 0
+swa_attention.launches = swa_attention.launches_tc = swa_attention.launches_fma = 0
+
+
+def bf16_limit(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int = 0, causal: bool = True, want=None
+) -> torch.Tensor:
+    """Per-element fp32 limit on |bf16 route - swa_attention_ref| for bf16 inputs:
+
+        2**-8 * sum_j p_ij |v_j|  +  2**-7 * |ref|  +  1e-6
+
+    The route rounds each probability p_ij to bf16 (relative error at most
+    2**-8) before P V, so the sum moves by at most 2**-8 sum_j p_ij |v_j|,
+    which is the plain version run on |v| in fp32.  Both outputs then round
+    to bf16 (the 2**-7 |ref|: a step either way); the 1e-6 covers fp32
+    summation order near 0.  ``want`` is the plain version's output where
+    the caller has it already."""
+    if want is None:
+        want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    spread = ref.swa_attention_ref(q.float(), k.float(), v.float().abs(), window=window, causal=causal)
+    return 2.0**-8 * spread + 2.0**-7 * want.float().abs() + 1e-6

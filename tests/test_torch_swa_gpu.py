@@ -5,9 +5,11 @@ This file imports torch only, so the ``cuda`` tests run on a machine with a
 GPU and no JAX: ``python -m pytest --noconftest -q tests/test_torch_swa_gpu.py``.
 Without a GPU they skip; the wrapper's refusals are checked on the CPU.
 The kernel and ``kernels.ref.swa_attention_ref`` read the same fp32 or bf16
-inputs and keep scores, probabilities and sums in fp32, so they differ by
-summation order (fp32: 2e-5) and, in bf16, by at most a rounding step of the
-output (0.05), ``tests/test_kernels.py``'s tolerances.
+inputs and keep scores, m, l and sums in fp32, so they differ by summation
+order (fp32: 2e-5).  The bf16 route (tensor cores) also rounds each
+probability to bf16 before P V: it is held to ``tests/test_kernels.py``'s
+0.05 and, element by element, to ``bf16_limit`` (that rounding's bound plus
+a bf16 step of the output).
 """
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.swa_attention import bf16_limit  # noqa: E402
 from repro_torch.kernels.swa_attention import swa_attention as swa_kernel  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,6 +67,44 @@ def test_swa_kernel_on_gpu(b, h, hkv, s, d, window, causal, dtype, strided, cuda
     assert o.shape == q.shape and o.dtype == q.dtype
     want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
     torch.testing.assert_close(o.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == "bfloat16":
+        assert_within_bf16_limit(o, want, q, k, v, window, causal)
+
+
+def assert_within_bf16_limit(o, want, q, k, v, window, causal):
+    diff = (o.float() - want.float()).abs()
+    limit = bf16_limit(q, k, v, window=window, causal=causal, want=want)
+    ratio = (diff / limit).max().item()
+    assert ratio <= 1.0, f"bf16 route off the plain version by {ratio:.3f} of bf16_limit"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [127, 128, 129, 255, 257])  # around the 128-row query and key tiles
+@pytest.mark.parametrize("window", [127, 128, 129])
+@pytest.mark.parametrize("h,hkv,d", [(12, 1, 128), (24, 2, 64), (2, 2, 32)])  # GQA group 12, 12, 1
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("strided", [False, True])
+def test_swa_kernel_bf16_tile_edges(s, window, h, hkv, d, causal, strided, cuda_device):
+    q, k, v = (t.to(cuda_device) for t in swa_inputs(1, h, hkv, s, d, torch.bfloat16, seed=s + window, strided=strided))
+    before = swa_kernel.launches_tc
+    o = swa_kernel(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert swa_kernel.launches_tc == before + 1
+    want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    torch.testing.assert_close(o.float(), want.float(), rtol=0.05, atol=0.05)
+    assert_within_bf16_limit(o, want, q, k, v, window, causal)
+
+
+@pytest.mark.cuda
+def test_swa_kernel_routes_by_dtype(cuda_device):
+    """bf16 inputs launch the tensor-core instance, fp32 inputs the FMA one."""
+    counts = lambda: (swa_kernel.launches, swa_kernel.launches_tc, swa_kernel.launches_fma)  # noqa: E731
+    q, k, v = (t.to(cuda_device) for t in swa_inputs(1, 4, 2, 200, 64, torch.bfloat16, strided=True))
+    n, tc, fma = counts()
+    swa_kernel(q, k, v, window=64)
+    assert counts() == (n + 1, tc + 1, fma)
+    swa_kernel(q.float(), k.float(), v.float(), window=64)
+    assert counts() == (n + 2, tc + 1, fma + 1)
 
 
 @pytest.mark.cuda
