@@ -9,15 +9,19 @@ result line):
 1. Device: the card's name and power limit as nvidia-smi reports them.
 2. Build: the four Hopper kernels from ``src/repro_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together; ptxas' registers,
-   spills and shared memory for each swa_attention instance (the bf16
-   tensor-core instance at D = 128 must not spill).
+   spills and shared memory for each ssd_scan and swa_attention instance
+   (the bf16 tensor-core instances the prefills run, ssd_scan's at ds = 128
+   and swa_attention's at D = 128, must not spill).
 3. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (timed with CUDA events; the sub-0.1 ms EHFL kernels also
    by their device time under torch.profiler, without the wrapper's host
-   time) and over ragged fp32/bf16 sweeps; swa_attention at the prefill
-   shape both in bf16 on its tensor-core route (each element within
-   ``bf16_limit``; a plain version one key tile short of the window must
-   fail that limit) and on the same inputs in fp32 on its FMA route (2e-5).
+   time) and over ragged fp32/bf16 sweeps; ssd_scan and swa_attention at
+   their prefill shapes both in bf16 on their tensor-core routes (each
+   element within ``ssd_bf16_limit`` / ``bf16_limit``; a plain scan without
+   the state's decay across chunks, and a plain attention one key tile
+   short of the window, must fail those limits) and on the same inputs in
+   fp32 on their FMA routes (1e-4 of the largest output / 2e-5), both routes
+   timed.
 4. The EHFL slice: ``run_simulation`` at the paper's width (the 845,738-parameter
    CNN, N=100 clients x 300 samples, k=10, S=30, kappa=20, a 500-image test
    set) for T epochs on the GPU, with ``TorchDraws(seed=0)``.  Only the depth
@@ -30,7 +34,8 @@ result line):
    (48 layers, d 2048, vocab 50280, bf16), random weights from
    ``torch.Generator`` seed 0 on the card.  (a) ``make_prefill_step`` on
    B=4 prompts x P=2048: median time, prefill tokens/s, and the ssd_scan
-   counter at exactly 48 per call, plus one profiled prefill by
+   counter at exactly 48 per call, all on the tensor-core route, plus one
+   profiled prefill by
    ``lm.*`` range; (b) the same prefill through the plain chunked scan,
    logits compared; (c) requests as ``examples/serve_demo_torch.py`` runs
    them: B=4 prompts of P=320 stepped through ``make_serve_step``, then 32
@@ -74,12 +79,15 @@ from pathlib import Path
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12  # tensor cores; the kernel redesigns' yardsticks
 BF16_FLOPS = 989e12
 
-# ssd_scan against ssd_scan_ref: both read the same fp32 or bf16 inputs and
-# accumulate in fp32 (the kernel by chunks, the plain version step by step),
-# so they differ only by summation order: error <= 1e-4 * max(1, max |ref|).
+# ssd_scan against ssd_scan_ref.  fp32 inputs (the FMA route): both read the
+# same inputs and accumulate in fp32 (the kernel by chunks, the plain version
+# step by step), so they differ only by summation order: error <= 1e-4 *
+# max(1, max |ref|).  bf16 inputs (the tensor-core route) also round P, x*w
+# and the state's copy to bf16: each element is held to
+# kernels.ssd_scan.ssd_bf16_limit, derived from those roundings, and a plain
+# scan without the state's decay across chunks must exceed that limit.
 SSD_RTOL = 1e-4
 # Serving.  Shapes of the issue: mamba2-1.3b's prefill B x P, starcoder2-3b's
 # at its training context, and for both requests of REQ_P prompt tokens then
@@ -283,12 +291,37 @@ def ssd_inputs(torch, g, b, s, nh, hp, ds, dtype, dev, decay=1.0):
 
 
 def ssd_errors(got, want):
-    """(max abs error, allowed) for y and for the final state."""
+    """(max abs error, allowed) for y and for the final state (fp32 route)."""
     return [((a - b).abs().max().item(), SSD_RTOL * max(1.0, b.abs().max().item())) for a, b in zip(got, want)]
 
 
+def ssd_limit_ratios(got, want, inputs):
+    """Largest |got - want| / ssd_bf16_limit for y and for the final state
+    (bf16 route)."""
+    from repro_torch.kernels.ssd_scan import ssd_bf16_limit
+
+    return [((a - b).abs() / lim).max().item() for a, b, lim in zip(got, want, ssd_bf16_limit(*inputs, *want))]
+
+
+def ssd_no_decay_across_chunks(x, dt, A, Bm, Cm, chunk):
+    """A wrong scan: the plain chunked form (``models.ssd.ssd_chunked``) with
+    the state's decay across chunk edges dropped, S_c = S_{c-1} + (chunk c's
+    update).  ssd_bf16_limit must catch it."""
+    import torch
+
+    from repro_torch.models.ssd import ssd_chunked
+
+    state, ys = None, []
+    for c0 in range(0, x.shape[1], chunk):
+        part = [x[:, c0 : c0 + chunk], dt[:, c0 : c0 + chunk], A, Bm[:, c0 : c0 + chunk], Cm[:, c0 : c0 + chunk]]
+        ys.append(ssd_chunked(*part, chunk, init_state=state)[0])
+        update = ssd_chunked(*part, chunk)[1]
+        state = update if state is None else state + update
+    return torch.cat(ys, dim=1), state
+
+
 def ssd_work(b, s, nh, hp, ds, L, elt):
-    """Bytes and fp32 operations the chunked SSD needs: each input read once
+    """Bytes and operations the chunked SSD needs: each input read once
     and each output written once; C.B^T once per (batch row, chunk) over
     the causal triangle, and per head the triangle times x*dt, C.S^T and
     the state update."""
@@ -302,41 +335,86 @@ def ssd_work(b, s, nh, hp, ds, L, elt):
 
 
 def phase_ssd_kernel(torch, ref, kern_ssd, dev):
-    """Phase 3 (ssd_scan): the prefill shape, timed, then a ragged sweep."""
+    """Phase 3 (ssd_scan): the prefill shape with bf16 strided inputs on the
+    tensor-core route, each element within ssd_bf16_limit, beside a plain
+    version without the state's decay across chunks (at decay 0.01) that
+    must fail it; the same inputs in fp32 on the FMA route (SSD_RTOL);
+    both routes timed; then a ragged sweep of both routes."""
+    from repro_torch.kernels.ssd_scan import tc_blocks_per_sm
+
     g = torch.Generator().manual_seed(2)
     b, s, nh, hp, ds, L = PREFILL_B, PREFILL_P, 64, 64, 128, 256
     inputs = ssd_inputs(torch, g, b, s, nh, hp, ds, torch.bfloat16, dev)
+    tc, fma = kern_ssd.launches_tc, kern_ssd.launches_fma
     got, want = kern_ssd(*inputs, chunk=L), ref.ssd_scan_ref(*inputs)
-    errs = ssd_errors(got, want)
-    if not all(e <= tol for e, tol in errs):
-        raise AssertionError(f"ssd_scan at the prefill shape disagrees with its plain version: {errs}")
+    ratios = ssd_limit_ratios(got, want, inputs)
+    err = max((a - w).abs().max().item() for a, w in zip(got, want))
+    del got, want
+    # state carrying far: the kernel within the limit, the mutant beyond it
+    slow = ssd_inputs(torch, g, b, s, nh, hp, ds, torch.bfloat16, dev, decay=0.01)
+    want_slow = ref.ssd_scan_ref(*slow)
+    slow_ratios = ssd_limit_ratios(kern_ssd(*slow, chunk=L), want_slow, slow)
+    mutant_ratios = ssd_limit_ratios(ssd_no_decay_across_chunks(*slow, L), want_slow, slow)
+    del slow, want_slow
+    # the same inputs in fp32: the FMA route at SSD_RTOL
+    in32 = [t.float() for t in inputs]
+    errs32 = ssd_errors(kern_ssd(*in32, chunk=L), ref.ssd_scan_ref(*in32))
+    routes = {"launches_tc": kern_ssd.launches_tc - tc, "launches_fma": kern_ssd.launches_fma - fma}
+    fp32_ms = time_ms(lambda: kern_ssd(*in32, chunk=L), iters=10, warmup=2)
+    del in32
+    log(json.dumps({"phase": "ssd_bf16_limit", "shape": [b, s, nh, hp, ds, L], "kernel_max_ratio_y_state": ratios,
+                    "kernel_max_ratio_y_state_decay_0.01": slow_ratios,
+                    "mutant": "no decay across chunks, decay 0.01", "mutant_max_ratio_y_state": mutant_ratios,
+                    "mutant_fails_limit": max(mutant_ratios) > 1.0, "fp32_err_y_state": errs32, "routes": routes}))
+    if not (max(ratios) <= 1.0 and max(slow_ratios) <= 1.0 and all(e <= tol for e, tol in errs32)):
+        raise AssertionError(f"ssd_scan at the prefill shape disagrees with its plain version: bf16 {ratios} and "
+                             f"{slow_ratios} of ssd_bf16_limit, fp32 {errs32}")
+    if not max(mutant_ratios) > 1.0:
+        raise AssertionError(f"a scan without the decay across chunks passes ssd_bf16_limit ({mutant_ratios})")
+    if routes != {"launches_tc": 2, "launches_fma": 1}:
+        raise AssertionError(f"bf16 must run the tensor-core route and fp32 the FMA route: {routes}")
+    blocks_per_sm = tc_blocks_per_sm(ds)
+    if blocks_per_sm != 2:
+        raise AssertionError(f"the bf16 route is sized for two blocks per SM; the card holds {blocks_per_sm}")
     nbytes, flops = ssd_work(b, s, nh, hp, ds, L, 2)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    ms = time_ms(lambda: kern_ssd(*inputs, chunk=L))
     row = {
         "kernel": "ssd_scan", "shape": [b, s, nh, hp, ds, L], "dtype": "bfloat16 x/B/C, strided",
-        "max_abs_err": max(e for e, _ in errs), "err_y_state": errs, "rtol": SSD_RTOL,
-        "ms": time_ms(lambda: kern_ssd(*inputs, chunk=L)),
+        "route": "tensor cores (wgmma bf16, TMA two stages, 64-row tiles)", "tc_blocks_per_sm": blocks_per_sm,
+        "max_abs_err": err, "max_ratio_to_ssd_bf16_limit": max(ratios),
+        "mutant_max_ratio_to_ssd_bf16_limit": max(mutant_ratios),
+        "max_abs_err_fp32": max(e for e, _ in errs32), "rtol_fp32": SSD_RTOL,
+        "ms": ms, "bf16_bound_share": b_ms / ms,
         "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*inputs), iters=3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "bound_tf32_ms": max(nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS) * 1e3,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_peak": "bf16 tensor cores, 989 TFLOP/s",
+        "fp32_route_ms": fp32_ms,
+        "bound_fp32_route_ms": bound(ssd_work(b, s, nh, hp, ds, L, 4)[0], flops)[0],
         "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "library_ms": None,
     }
     log(json.dumps(row))
-    del inputs, got, want
+    del inputs
 
-    n_checked, worst = 0, 0.0
+    n_checked, worst = 0, {"float32": 0.0, "bfloat16_ratio_to_limit": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for s, hp, ds, chunk, b, decay in itertools.product(
             (300, 64, 1), (32, 64), (16, 128), (64, 256), (1, 2), (1.0, 0.01)
         ):
             inputs = ssd_inputs(torch, g, b, s, 3, hp, ds, dtype, dev, decay)
-            errs = ssd_errors(kern_ssd(*inputs, chunk=chunk), ref.ssd_scan_ref(*inputs))
-            if not all(e <= tol for e, tol in errs):
+            got, want = kern_ssd(*inputs, chunk=chunk), ref.ssd_scan_ref(*inputs)
+            if dtype == torch.float32:
+                errs = ssd_errors(got, want)
+                ok = all(e <= tol for e, tol in errs)
+                worst["float32"] = max(worst["float32"], *(e for e, _ in errs))
+            else:
+                errs = ssd_limit_ratios(got, want, inputs)
+                ok = max(errs) <= 1.0
+                worst["bfloat16_ratio_to_limit"] = max(worst["bfloat16_ratio_to_limit"], *errs)
+            if not ok:
                 raise AssertionError(f"ssd_scan {(b, s, 3, hp, ds, chunk, dtype, decay)} disagrees: {errs}")
-            worst = max(worst, *(e for e, _ in errs))
             n_checked += 1
     torch.cuda.synchronize()
-    log(json.dumps({"phase": "ssd_kernel_sweep", "cases": n_checked, "max_abs_err": worst, "ok": True}))
+    log(json.dumps({"phase": "ssd_kernel_sweep", "cases": n_checked, "worst": worst, "ok": True}))
     return row
 
 
@@ -861,12 +939,14 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s for {list(build.KERNELS)}")
-    swa_ptxas = build.ptxas_report("swa_attention")
-    for r in swa_ptxas:
-        log(json.dumps({"phase": "ptxas", "kernel": "swa_attention", **r}))
-    tc128 = [r for r in swa_ptxas if "swa_tc_kernelILi128E" in r["function"]]
-    if len(tc128) != 1 or tc128[0]["spill_stores"] or tc128[0]["spill_loads"]:
-        raise AssertionError(f"the bf16 tensor-core instance at D = 128 is missing or spills: {tc128}")
+    # the bf16 tensor-core instances the prefills run must not spill
+    for name, prefill_instance in (("ssd_scan", "ssd_tc_kernelILi2E"), ("swa_attention", "swa_tc_kernelILi128E")):
+        report = build.ptxas_report(name)
+        for r in report:
+            log(json.dumps({"phase": "ptxas", "kernel": name, **r}))
+        tc = [r for r in report if prefill_instance in r["function"]]
+        if len(tc) != 1 or tc[0]["spill_stores"] or tc[0]["spill_loads"]:
+            raise AssertionError(f"{name}'s bf16 tensor-core instance {prefill_instance} is missing or spills: {tc}")
 
     # --- phase 3: kernels against their plain versions ---
     kresults = phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev)
@@ -917,8 +997,8 @@ def main() -> int:
     log(json.dumps(cmp))
 
     # --- phase 6: the serving slice, mamba2-1.3b at full width ---
-    serve_launches, _ = phase_lm_serving(torch, dev, ops, smi, "mamba2-1.3b", PREFILL_B, PREFILL_P, "ssd_scan",
-                                         prefix="", plain_runs=3)
+    serve_launches, serve_routes = phase_lm_serving(torch, dev, ops, smi, "mamba2-1.3b", PREFILL_B, PREFILL_P,
+                                                    "ssd_scan", prefix="", plain_runs=3, route="launches_tc")
 
     # --- phase 7: the attention slice, starcoder2-3b at full width ---
     sc_launches, sc_routes = phase_lm_serving(torch, dev, ops, smi, "starcoder2-3b", SC_PREFILL_B, SC_PREFILL_P,
@@ -944,8 +1024,10 @@ def main() -> int:
 
     ssd = entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:73",
                 kresults["ssd_scan"], serve_launches)
-    ssd.update(launches_per_prefill=serve_launches["ssd_scan"] // PREFILL_RUNS,
-               bound_tf32_ms=kresults["ssd_scan"][0]["bound_tf32_ms"])
+    ssd_row = kresults["ssd_scan"][0]
+    ssd.update(launches_per_prefill=serve_launches["ssd_scan"] // PREFILL_RUNS, route_launches=serve_routes,
+               bf16_bound_share=ssd_row["bf16_bound_share"], fp32_route_ms=ssd_row["fp32_route_ms"],
+               bound_fp32_route_ms=ssd_row["bound_fp32_route_ms"])
     swa = entry("swa_attention", "src/repro_torch/csrc/swa_attention.cu", "src/repro/kernels/swa_attention.py:79",
                 kresults["swa_attention"], sc_launches)
     swa_row = kresults["swa_attention"][0]

@@ -95,6 +95,19 @@ def ptxas_report(name: str) -> List[dict]:
     return rows
 
 
+def check_tma_layout(name: str, t) -> None:
+    """Raise unless TMA can load the bf16 tensor ``t`` (argument ``name``)
+    through its strides, as the tensor-core routes do: a contiguous last
+    dim, a 16-byte-aligned base, and the other strides multiples of 16
+    bytes (a dim of size 1 is never stepped, so its stride is free)."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"bf16 route (TMA): {name} needs a contiguous last dim; strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"bf16 route (TMA): {name}'s base address must be a multiple of 16 bytes")
+    if any(st % 8 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+        raise ValueError(f"bf16 route (TMA): {name}'s strides {t.stride()} must be multiples of 16 bytes")
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if needed."""

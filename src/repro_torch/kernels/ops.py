@@ -59,7 +59,10 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True):
 
 
 # kernels with more than one route, and the counter of each
-ROUTES = {"swa_attention": ("launches_tc", "launches_fma")}
+ROUTES = {
+    "ssd_scan": ("launches_tc", "launches_fma"),
+    "swa_attention": ("launches_tc", "launches_fma"),
+}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -90,12 +90,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int)
         raise ValueError("swa_attention has no backward kernel: call it on inputs that do not require grad")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.stride(-1) != 1:
-                raise ValueError(f"bf16 route (TMA): {name} needs a contiguous last dim; strides {t.stride()}")
-            if t.data_ptr() % 16:
-                raise ValueError(f"bf16 route (TMA): {name}'s base address must be a multiple of 16 bytes")
-            if any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
-                raise ValueError(f"bf16 route (TMA): {name}'s strides {t.stride()} must be multiples of 16 bytes")
+            build.check_tma_layout(name, t)
 
 
 def swa_attention(

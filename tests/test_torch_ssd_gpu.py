@@ -4,9 +4,13 @@ wrapper refuses.
 This file imports torch only, so the ``cuda`` tests run on a machine with a
 GPU and no JAX: ``python -m pytest --noconftest -q tests/test_torch_ssd_gpu.py``.
 Without a GPU they skip; the wrapper's refusals are checked on the CPU.
-The kernel and ``kernels.ref.ssd_scan_ref`` (the exact recurrence) read the
-same fp32 or bf16 inputs and both accumulate in fp32, so they differ only by
-the order of their sums: 1e-4 absolute and relative.
+fp32 inputs run the FMA route, which like ``kernels.ref.ssd_scan_ref`` (the
+exact recurrence) reads the inputs as they are and sums in fp32, so the two
+differ only by the order of their sums: 1e-4 absolute and relative.  bf16
+inputs run the tensor-core route, which also rounds P, X∘w and the state's
+copy to bf16: each element is held to ``ssd_bf16_limit``, derived from
+those roundings, and a plain version without the state's decay across
+chunks must fail that limit.
 """
 import numpy as np
 import pytest
@@ -14,7 +18,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_bf16_limit  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel  # noqa: E402
+from repro_torch.models.ssd import ssd_chunked  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = 1e-4
@@ -63,13 +69,56 @@ def cuda_device():
 @pytest.mark.parametrize("decay", [1.0, 0.01])
 def test_ssd_kernel_on_gpu(b, s, nh, hp, ds, chunk, dtype, strided, decay, cuda_device):
     inputs = [t.to(cuda_device) for t in ssd_inputs(b, s, nh, hp, ds, DTYPES[dtype], strided=strided, decay=decay)]
-    before = ssd_kernel.launches
+    route = "launches_tc" if dtype == "bfloat16" else "launches_fma"
+    before = ssd_kernel.launches, getattr(ssd_kernel, route)
     y, state = ssd_kernel(*inputs, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_kernel.launches == before + 1
+    assert (ssd_kernel.launches, getattr(ssd_kernel, route)) == (before[0] + 1, before[1] + 1)
     ry, rstate = ref.ssd_scan_ref(*inputs)
-    torch.testing.assert_close(y, ry, rtol=TOL, atol=TOL)
-    torch.testing.assert_close(state, rstate, rtol=TOL, atol=TOL)
+    if dtype == "float32":
+        torch.testing.assert_close(y, ry, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(state, rstate, rtol=TOL, atol=TOL)
+    else:
+        assert max(limit_ratios((y, state), (ry, rstate), inputs)) <= 1.0
+
+
+def limit_ratios(got, want, inputs):
+    """max over elements of |got - want| / ssd_bf16_limit, for y and state."""
+    return [((g - w).abs() / lim).max().item() for g, w, lim in zip(got, want, ssd_bf16_limit(*inputs, *want))]
+
+
+def no_decay_across_chunks(x, dt, A, Bm, Cm, chunk):
+    """The plain chunked form with the state's decay across chunk edges
+    dropped: S_c = S_{c-1} + (chunk c's update).  A wrong kernel."""
+    b, s = x.shape[:2]
+    state = torch.zeros(b, x.shape[2], x.shape[3], Bm.shape[-1], device=x.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        part = [t[:, c0 : c0 + chunk] for t in (x, dt)] + [A] + [t[:, c0 : c0 + chunk] for t in (Bm, Cm)]
+        ys.append(ssd_chunked(*part, chunk, init_state=state)[0])
+        state = state + ssd_chunked(*part, chunk)[1]
+    return torch.cat(ys, dim=1), state
+
+
+@pytest.mark.cuda
+def test_bf16_limit_catches_a_missing_decay_across_chunks(cuda_device):
+    inputs = [t.to(cuda_device) for t in ssd_inputs(2, 600, 3, 64, 128, torch.bfloat16, strided=True, decay=0.01)]
+    want = ref.ssd_scan_ref(*inputs)
+    assert max(limit_ratios(ssd_kernel(*inputs, chunk=256), want, inputs)) <= 1.0
+    assert max(limit_ratios(no_decay_across_chunks(*inputs, 256), want, inputs)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_routes_by_dtype(dtype, cuda_device):
+    """bf16 runs the tensor-core route, fp32 the FMA route; ops counts both."""
+    inputs = [t.to(cuda_device) for t in ssd_inputs(1, 70, 2, 64, 128, DTYPES[dtype])]
+    counts = lambda: (ssd_kernel.launches, ssd_kernel.launches_tc, ssd_kernel.launches_fma)  # noqa: E731
+    before = counts()
+    ops.ssd_scan(*inputs, chunk=64)
+    tc = int(dtype == "bfloat16")
+    assert counts() == (before[0] + 1, before[1] + tc, before[2] + 1 - tc)
+    assert ops.route_launch_counts()["ssd_scan"] == {"launches_tc": counts()[1], "launches_fma": counts()[2]}
 
 
 @pytest.mark.cuda
