@@ -59,7 +59,28 @@ result line):
    GPU memory; (f) a rolling wrap at the same width: 2 layers, window 256,
    fp32, 600 tokens stepped, every 50th step's logits held against a
    kernel-route prefill of the same prefix.
-8. One JSON line listing every ported kernel, then the result line.
+9a. The scenario axes at phase 4's width and depth: three runs that cover
+   every harvest, stream and channel scenario (markov + drift + fading;
+   hetero + arrival + erasure at p_loss 0.3, concentration 1.0; diurnal
+   with period 60 + shift with period 4 + aloha with 2 channels), each
+   printing its epoch time, clients trained per second, f1 and the
+   channel's failed and dropped totals; each must launch vaoi_distance T
+   and fedavg_reduce 2T times, fail some uploads, send retrying carriers
+   through the old-carrier pass and account every attempt (n_delivered +
+   n_failed = n_uploaded); some retransmission must land over the three.
+   The first is held against the CPU epoch by epoch from shared state for
+   3 epochs, as in phase 5, with the retry counters, the scenario state and
+   the stream's view indices compared exactly; inside each epoch the CPU's
+   local training is teacher-forced by the GPU's, SGD step by SGD step
+   (each step from the GPU's weights within STEP_ATOL of the GPU's step),
+   and the free-running spreads (GPU against itself, GPU against the
+   unforced CPU) are printed beside it.
+9b. ``run_batch`` over seeds 0, 1, 2 at phase 4's width and depth: 3T and
+   6T launches, the output shapes, per-seed epoch time and seeds per hour
+   at T=500; then, under cuDNN's deterministic algorithms, seed 1 of the
+   batch against a solo run of seed 1 (integer fields and selections
+   exactly, params within phase 5's tolerance).
+8. Last: one JSON line listing every ported kernel, then the result line.
 
 TF32 is switched off for cuDNN convolutions and matmuls, so the GPU runs
 compute in full fp32 where they are fp32, like the plain versions they are
@@ -68,6 +89,8 @@ compared with.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import itertools
 import json
 import statistics
@@ -143,6 +166,34 @@ WRAP_LAYERS, WRAP_WINDOW, WRAP_B, WRAP_STEPS, WRAP_EVERY = 2, 256, 2, 600, 50
 PARAM_ATOL, M_ATOL, F1_ATOL, AGE_MEAN_ATOL = 2e-3, 1e-5, 0.01, 1e-6
 EXACT = ("battery", "age", "pending", "counter")
 EXACT_METRICS = ("selected", "n_started", "n_uploaded", "energy")
+
+# Phase 9a: phase 4's run under three combinations that cover every
+# harvest, stream and channel scenario; the first is held against the CPU
+# for SCENARIO_CPU_EPOCHS epochs.  Phase 9b: run_batch over BATCH_SEEDS.
+SCENARIO_RUNS = (
+    ("markov_drift_fading", dict(harvest="markov", stream="drift", channel="fading")),
+    ("hetero_arrival_erasure", dict(harvest="hetero", stream="arrival", channel="erasure",
+                                    channel_params=(("p_loss", 0.3), ("concentration", 1.0)))),
+    ("diurnal_shift_aloha", dict(harvest="diurnal", harvest_params=(("period", 60.0),), stream="shift",
+                                 stream_params=(("period", 4.0),), channel="aloha",
+                                 channel_params=(("num_channels", 2.0),))),
+)
+SCENARIO_CPU_EPOCHS = 3
+# 9a's CPU epochs are teacher-forced step by step: at each of the kappa SGD
+# steps the CPU computes its own update from the GPU's weights of the step
+# before, is held to STEP_ATOL against the GPU's step, and goes on from the
+# GPU's weights.  Free-running, the two part by the chaos described above
+# before an epoch ends: under markov harvest 1-3 clients start in an epoch
+# and h is per client, so no average damps one client's flip, and the GPU
+# parts from itself (cuDNN's atomics, same inputs) by more than PARAM_ATOL
+# (PERF.md).  One step from the same weights differs by the two devices'
+# conv algorithms and summation orders, and where a rounding-sized
+# difference flips a ReLU or a max-pool choice, by that position's share of
+# the gradient: up to 6.4e-5 over 640 forced steps on an H100, against
+# steps of 0.012-0.064 (tools/ehfl_step_survey.py, PERF.md).  Each step is
+# held to 2e-4, about three times that, as PARAM_ATOL is to phase 5's 6.3e-4.
+STEP_ATOL = 2e-4
+BATCH_SEEDS = (0, 1, 2)
 
 
 def log(msg: str) -> None:
@@ -776,13 +827,25 @@ def map_tensors(tree, fn):
 
 
 def to_device(tree, device):
-    """An EpochCarry (or dict of tensors) copied to ``device``."""
+    """An EpochCarry, a dict of tensors or a scenario state copied to
+    ``device`` (None and Python numbers, the diurnal clock, as they are)."""
     if isinstance(tree, dict):
-        return {k: v.to(device) for k, v in tree.items()}
-    return tree._replace(**{
-        f: to_device(x, device) if isinstance(x, dict) else x.to(device)
-        for f, x in tree._asdict().items() if x is not None
-    })
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [to_device(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def same_state(torch, a, b) -> bool:
+    """Two carries' or scenario states' leaves equal exactly (any device)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(torch, a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_state(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
 
 
 def max_abs(a, b) -> float:
@@ -791,35 +854,131 @@ def max_abs(a, b) -> float:
     return (a.cpu().double() - b.cpu().double()).abs().max().item()
 
 
-def phase_cpu_vs_gpu(torch, sim, cfg, backend, data, TorchDraws, dev, phase4_metrics):
-    """Phase 5.  Drive the phase-4 run again on the GPU; before each GPU
-    epoch, copy its input state to the CPU and run the same epoch there with
-    the plain versions and the same draws.  Integer state, ages and
-    selections must be equal; params, h and M within the stated tolerances.
-    One GPU epoch near the end runs under torch.profiler."""
+def view_mismatches(torch, stream, state_gpu, state_cpu, t, dg, dc, draws_gpu, draws_cpu):
+    """The epoch's stream view on the card and on the CPU from the same
+    state and draws: (number of view indices that differ, the distance of
+    each such index's uniform to the nearest edge of the CPU's CDF)."""
+    from repro_torch.data.stream import view_cdf
+
+    idx_g, _ = stream.step(state_gpu, t, dg["labels"], draws_gpu.stream)
+    idx_c, _ = stream.step(state_cpu, t, dc["labels"], draws_cpu.stream)
+    diff = idx_g.cpu() != idx_c
+    n = int(diff.sum())
+    dist = []
+    if n and stream.weights is not None:
+        cdf = view_cdf(stream.weights(state_cpu, t, dc["labels"]))
+        u = draws_cpu.stream
+        for i, j in diff.nonzero().tolist()[:20]:
+            dist.append(min(abs(u[i, j].item() - c) for c in cdf[i].tolist()))
+    return n, dist
+
+
+def rows_of(params, like):
+    """The shared ``params`` expanded to the lanes of ``like`` (a step's
+    per-client weights), as local training starts from them."""
+    return {k: v.unsqueeze(0).expand_as(like[k]) for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def wrapped_sgd_update(sim, wrap):
+    """The simulator's ``sgd_update`` (the local training's step) replaced
+    by ``wrap(real_sgd_update)`` inside the block."""
+    real = sim.sgd_update
+    sim.sgd_update = wrap(real)
+    try:
+        yield
+    finally:
+        sim.sgd_update = real
+
+
+def phase_cpu_vs_gpu(torch, sim, cfg, backend, data, TorchDraws, dev, phase4_metrics=None,
+                     epochs=None, exact=EXACT, exact_metrics=EXACT_METRICS, name="slice_cpu_vs_gpu",
+                     forced=False):
+    """Phase 5 (and 9a's first scenario run).  Drive the run again on the
+    GPU for ``epochs`` (default all) epochs; before each GPU epoch, copy its
+    input state to the CPU and run the same epoch there with the plain
+    versions and the same draws.  Fields ``exact`` (carry) and
+    ``exact_metrics`` must be equal, the stream's view indices too; params,
+    h and M within the stated tolerances.  ``forced`` (9a): the CPU epoch's
+    local training is teacher-forced by the GPU's, step by step (each CPU
+    step within STEP_ATOL of the GPU's from the same weights), and the
+    free-running spreads are reported beside it: the GPU epoch run twice,
+    and the CPU epoch unforced.  The last GPU epoch runs under
+    torch.profiler.  With ``phase4_metrics`` (phase 5), also the SGD
+    sensitivity and whether the redrive matched phase 4."""
     from repro_torch.models.cnn import macro_f1
 
     cpu = torch.device("cpu")
+    epochs = cfg.epochs if epochs is None else epochs
     dg, dc = sim.to_device_data(data, dev), sim.to_device_data(data, cpu)
     epoch_gpu, epoch_cpu = sim.make_epoch_fn(cfg, backend, dg), sim.make_epoch_fn(cfg, backend, dc)
-    draws, n_samples = TorchDraws(seed=0), dg["images"].shape[1]
-    carry = sim.init_carry(cfg, backend, dev)
+    stream = cfg.data_stream(backend.num_classes)
+    draws, n_samples = TorchDraws(seed=cfg.seed), dg["images"].shape[1]
+    carry = sim.init_carry(cfg, backend, dev, draws=draws)
     worst = {"params": 0.0, "h": 0.0, "avg_m": 0.0, "avg_age": 0.0}
-    redrive = []
+    redrive, views, per_epoch = [], [], []
     cpu_s = 0.0
     profile = None
-    for t in range(cfg.epochs):
+    steps, step_errs = [], []
+
+    def record(real):  # the GPU epoch keeps each step's weights
+        def update(p, grads, lr):
+            steps.append(real(p, grads, lr))
+            return steps[-1]
+        return update
+
+    def force(real):  # the CPU steps from the GPU's weights and goes on from them
+        def update(p, grads, lr):
+            if len(step_errs) == len(steps):
+                raise AssertionError("the CPU epoch takes more SGD steps than the GPU epoch")
+            gpu = to_device(steps[len(step_errs)], cpu)
+            step_errs.append(max_abs(real(p, grads, lr), gpu))
+            return gpu
+        return update
+
+    for t in range(epochs):
         cin = to_device(carry, cpu)
-        if t == cfg.epochs - 1:
+        if t == epochs - 1:
             profile = profile_run(torch, lambda: epoch_gpu(carry, t, draws.epoch(t, cfg, n_samples, dev)), dev, "ehfl.")
-        nxt, mg = epoch_gpu(carry, t, draws.epoch(t, cfg, n_samples, dev))
-        t0 = time.perf_counter()
-        out, mc = epoch_cpu(cin, t, draws.epoch(t, cfg, n_samples, cpu))
-        cpu_s += time.perf_counter() - t0
-        for f in EXACT:
-            if not torch.equal(getattr(nxt, f).cpu(), getattr(out, f)):
+        draws_gpu, draws_cpu = draws.epoch(t, cfg, n_samples, dev), draws.epoch(t, cfg, n_samples, cpu)
+        if stream.persistent:
+            n_diff, dist = view_mismatches(torch, stream, carry.stream, cin.stream, t, dg, dc, draws_gpu, draws_cpu)
+            views.append({"epoch": t, "indices": dg["labels"].numel(), "differ": n_diff, "edge_distance": dist})
+            if n_diff:
+                log(json.dumps({"phase": name, "view_mismatch": views[-1]}))
+                raise AssertionError(f"epoch {t}: the stream view differs in {n_diff} indices on GPU and CPU")
+        if forced:
+            steps.clear()
+            step_errs.clear()
+            with wrapped_sgd_update(sim, record):
+                nxt, mg = epoch_gpu(carry, t, draws_gpu)
+            again, _ = epoch_gpu(carry, t, draws_gpu)
+            free, _ = epoch_cpu(cin, t, draws_cpu)
+            t0 = time.perf_counter()
+            with wrapped_sgd_update(sim, force):
+                out, mc = epoch_cpu(cin, t, draws_cpu)
+            cpu_s += time.perf_counter() - t0
+            if len(step_errs) != len(steps) or not max(step_errs, default=0.0) <= STEP_ATOL:
+                raise AssertionError(f"epoch {t}: a CPU SGD step from the GPU's weights is more than {STEP_ATOL} "
+                                     f"from the GPU's step ({len(step_errs)} of {len(steps)} steps): {step_errs}")
+            updates = [max((b[k] - a[k]).abs().max().item() for k in a)
+                       for a, b in zip([rows_of(carry.global_params, steps[0])] + steps[:-1], steps)]
+            per_epoch.append({
+                "epoch": t, "n_started": mg["n_started"].item(), "sgd_steps": len(steps),
+                "step_max_abs_err": max(step_errs, default=0.0), "step_max_abs_update": max(updates, default=0.0),
+                "free_running_h_gpu_vs_gpu": max_abs(nxt.h, again.h), "free_running_h_gpu_vs_cpu": max_abs(nxt.h, free.h),
+                "free_running_client_params_gpu_vs_cpu": max_abs(nxt.msg_params, free.msg_params),
+            })
+            del again, free
+        else:
+            nxt, mg = epoch_gpu(carry, t, draws_gpu)
+            t0 = time.perf_counter()
+            out, mc = epoch_cpu(cin, t, draws_cpu)
+            cpu_s += time.perf_counter() - t0
+        for f in exact:
+            if not same_state(torch, getattr(nxt, f), getattr(out, f)):
                 raise AssertionError(f"epoch {t}: GPU and CPU differ in {f}")
-        for k in EXACT_METRICS:
+        for k in exact_metrics:
             if not torch.equal(mg[k].cpu(), mc[k]):
                 raise AssertionError(f"epoch {t}: GPU and CPU differ in {k}: {mg[k].tolist()} vs {mc[k].tolist()}")
         errs = {"params": max_abs(nxt.global_params, out.global_params), "h": max_abs(nxt.h, out.h),
@@ -836,19 +995,165 @@ def phase_cpu_vs_gpu(torch, sim, cfg, backend, data, TorchDraws, dev, phase4_met
     )
     if not abs(f1_gpu - f1_cpu) <= F1_ATOL:
         raise AssertionError(f"final f1 differs: GPU {f1_gpu} vs CPU {f1_cpu}")
-    sensitivity = sgd_sensitivity(torch, sim, cfg, backend, dg, draws, dev)
-    # the GPU run is not bitwise repeatable (cuDNN's backward passes sum with
-    # atomics), so this is reported, not required
-    same_as_phase4 = all(
-        torch.equal(torch.stack([m[k] for m in redrive]).cpu(), phase4_metrics[k].cpu()) for k in EXACT_METRICS
-    )
-    return {
-        "phase": "slice_cpu_vs_gpu", "epochs": cfg.epochs, "cpu_epoch_s_mean": cpu_s / cfg.epochs,
-        "exact": list(EXACT + EXACT_METRICS), "max_abs_err": worst,
+    row = {
+        "phase": name, "epochs": epochs, "cpu_epoch_s_mean": cpu_s / epochs,
+        "exact": list(exact + exact_metrics), "max_abs_err": worst,
         "atol": {"params": PARAM_ATOL, "h": PARAM_ATOL, "avg_m": M_ATOL, "avg_age": AGE_MEAN_ATOL, "f1": F1_ATOL},
-        "f1_gpu": f1_gpu, "f1_cpu": f1_cpu, "redrive_matches_phase4": same_as_phase4,
-        "sgd_sensitivity": sensitivity, "profile": profile,
+        "f1_gpu": f1_gpu, "f1_cpu": f1_cpu, "profile": profile,
     }
+    if views:
+        row["view_indices_compared"] = sum(v["indices"] for v in views)
+    if forced:
+        row.update(step_atol=STEP_ATOL, step_max_abs_err=max(e["step_max_abs_err"] for e in per_epoch),
+                   per_epoch=per_epoch)
+    if phase4_metrics is not None:
+        row["sgd_sensitivity"] = sgd_sensitivity(torch, sim, cfg, backend, dg, draws, dev)
+        # the GPU run is not bitwise repeatable (cuDNN's backward passes sum
+        # with atomics), so this is reported, not required
+        row["redrive_matches_phase4"] = all(
+            torch.equal(torch.stack([m[k] for m in redrive]).cpu(), phase4_metrics[k].cpu()) for k in exact_metrics
+        )
+    return row
+
+
+def run_summary(torch, m, T, smi):
+    """Epoch time (median of epochs 1..T-1), clients trained per second and
+    the channel's totals of one run's metrics."""
+    steady = statistics.median(m["epoch_s"][1:].tolist()) if T > 1 else m["epoch_s"][0].item()
+    return {
+        "steady_epoch_s_median": steady, "first_epoch_s": m["epoch_s"][0].item(),
+        "started_clients_per_s": m["n_started"].sum().item() / m["epoch_s"].sum().item(),
+        "f1": m["f1"][-1].item(), "n_started": m["n_started"].sum().item(),
+        "n_uploaded": m["n_uploaded"].sum().item(), "n_delivered": m["n_delivered"].sum().item(),
+        "n_failed": m["n_failed"].sum().item(), "n_dropped": m["n_dropped"].sum().item(),
+        "n_retried": m["n_retried"].sum().item(), "n_resent": m["n_resent"].sum().item(), "power_limit": smi,
+    }
+
+
+def check_channel_run(torch, m, name):
+    """9a's checks on one lossy run: every attempt lands or fails, some
+    fail, and some epoch sends retrying carriers (messages that failed
+    before) through fedavg_reduce's old-carrier pass; f1 finite.  Whether a
+    retransmission lands is the channel's draw: phase_scenarios requires
+    one over the runs together."""
+    if not torch.equal(m["n_delivered"] + m["n_failed"], m["n_uploaded"]):
+        raise AssertionError(f"{name}: n_delivered + n_failed != n_uploaded in some epoch")
+    if not m["n_failed"].sum().item() > 0:
+        raise AssertionError(f"{name}: the lossy channel failed no upload")
+    if not m["n_retried"].sum().item() > 0:
+        raise AssertionError(f"{name}: no retrying carrier went through the old-carrier pass")
+    if not torch.isfinite(m["f1"]).all().item():
+        raise AssertionError(f"{name}: f1 is not finite")
+
+
+def phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi):
+    """Phase 9a: phase 4's paper-width run under three scenario
+    combinations that cover every harvest, stream and channel scenario,
+    each counted (T vaoi_distance, 2T fedavg_reduce launches), checked
+    (``check_channel_run``) and one further epoch profiled; the first is
+    also held against the CPU epoch by epoch from shared state for 3
+    epochs.  Returns the launch counts of the runs."""
+    T = cfg.epochs
+    want = {"vaoi_distance": T, "fedavg_reduce": 2 * T, "ssd_scan": 0, "swa_attention": 0}
+    counts, resent = [], 0
+    dd = sim.to_device_data(data, dev)
+    for name, kw in SCENARIO_RUNS:
+        scfg = dataclasses.replace(cfg, **kw)
+        draws = TorchDraws(seed=scfg.seed)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sim.run_simulation(scfg, backend, data, draws=draws, device=dev)
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        counts.append(launches)
+        m = out["metrics"]
+        for t in range(T):
+            log(json.dumps({"phase": f"scenario_{name}", "epoch": t, "epoch_s": m["epoch_s"][t].item(),
+                            **{k: m[k][t].item() for k in ("n_started", "n_uploaded", "n_delivered", "n_failed",
+                                                            "n_dropped", "n_retried", "n_resent", "avg_age",
+                                                            "energy")}}))
+        if launches != want:
+            raise AssertionError(f"{name}: kernel launches {launches} != {want}")
+        check_channel_run(torch, m, name)
+        resent += m["n_resent"].sum().item()
+        if not all(torch.isfinite(v).all().item() for v in out["global_params"].values()):
+            raise AssertionError(f"{name}: non-finite params")
+        epoch_fn = sim.make_epoch_fn(scfg, backend, dd)
+        profile = profile_run(torch, lambda: epoch_fn(out["carry"], T, draws.epoch(T, scfg, dd["images"].shape[1], dev)),
+                              dev, "ehfl.")
+        log(json.dumps({"phase": f"scenario_{name}_summary", "config": kw, "epochs": T,
+                        "wall_s": wall, "launches": launches, **run_summary(torch, m, T, smi),
+                        "profile_epoch": profile}))
+    if not resent > 0:
+        raise AssertionError("no retransmission of a failed message landed in any scenario run")
+    name, kw = SCENARIO_RUNS[0]
+    scen = dataclasses.replace(cfg, **kw)
+    exact = EXACT + ("retries", "backoff", "harvest", "stream", "channel")
+    log(json.dumps(phase_cpu_vs_gpu(torch, sim, scen, backend, data, TorchDraws, dev, epochs=SCENARIO_CPU_EPOCHS,
+                                    exact=exact, exact_metrics=EXACT_METRICS + ("n_failed", "n_dropped"),
+                                    name=f"scenario_{name}_cpu_vs_gpu", forced=True)))
+    return counts
+
+
+def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
+    """Phase 9b: ``run_batch`` at paper width over BATCH_SEEDS (3T and 6T
+    launches, the output shapes, the shared eval schedule), timed; then,
+    under cuDNN's deterministic algorithms (this check only), seed 1 of the
+    batch against a solo ``run_simulation(seed=1)``: integer fields and
+    selections exactly, params within phase 5's tolerance.  Returns the
+    launch counts of the timed batch."""
+    T, R, n = cfg.epochs, len(BATCH_SEEDS), cfg.num_clients
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.run_batch(cfg, backend, data, BATCH_SEEDS, device=dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {"vaoi_distance": R * T, "fedavg_reduce": 2 * R * T, "ssd_scan": 0, "swa_attention": 0}
+    if launches != want:
+        raise AssertionError(f"run_batch: kernel launches {launches} != {want}")
+    m = out["metrics"]
+    n_evals = len(range(cfg.eval_every, T + 1, cfg.eval_every)) + (T % cfg.eval_every > 0)
+    shapes_ok = (
+        all(m[k].shape == (R, T) for k in ("energy", "avg_age", "n_started", "n_uploaded", "avg_m", "n_failed"))
+        and m["selected"].shape == (R, T, n) and m["f1"].shape == (R, n_evals) and m["total_energy"].shape == (R,)
+        and m["f1_epochs"].tolist() == sorted({*range(cfg.eval_every, T + 1, cfg.eval_every), T})
+        and out["carry"].battery.shape == (R, n)
+        and all(out["global_params"][k].shape[0] == R for k in out["global_params"])
+    )
+    if not (shapes_ok and torch.isfinite(m["f1"]).all().item()):
+        raise AssertionError(f"run_batch output shapes or f1 wrong: f1 {m['f1'].tolist()}")
+    per_seed = [statistics.median(m["epoch_s"][i, 1:].tolist()) for i in range(R)]
+    steady = statistics.median(m["epoch_s"][:, 1:].flatten().tolist())
+    log(json.dumps({
+        "phase": "run_batch", "seeds": list(BATCH_SEEDS), "epochs": T, "wall_s": wall, "launches": launches,
+        "per_seed_steady_epoch_s": per_seed, "f1": m["f1"][:, -1].tolist(),
+        "n_started": m["n_started"].sum(1).tolist(), "total_energy": m["total_energy"].tolist(),
+        "seeds_per_hour_at_T500": 3600.0 / (500 * steady), "solo_wall_s_phase4": solo_wall_s,
+        "wall_over_R_solo": wall / (R * solo_wall_s), "power_limit": smi,
+    }))
+
+    # seed 1 of the batch against its solo run, bit-repeatable cuDNN
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        batch = sim.run_batch(cfg, backend, data, BATCH_SEEDS, device=dev)
+        solo = sim.run_simulation(dataclasses.replace(cfg, seed=1), backend, data, device=dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    i = BATCH_SEEDS.index(1)
+    exact_fields = EXACT + ("retries", "backoff")
+    diff_metrics = [k for k in EXACT_METRICS + ("n_delivered", "n_failed", "n_dropped")
+                    if not torch.equal(batch["metrics"][k][i], solo["metrics"][k])]
+    diff_fields = [f for f in exact_fields if not torch.equal(getattr(batch["carry"], f)[i], getattr(solo["carry"], f))]
+    err = max_abs({k: v[i] for k, v in batch["global_params"].items()}, solo["global_params"])
+    f1_err = max_abs(batch["metrics"]["f1"][i], solo["metrics"]["f1"])
+    row = {"phase": "run_batch_seed_vs_solo", "seed": 1, "cudnn_deterministic": True,
+           "differing_exact_metrics": diff_metrics, "differing_exact_fields": diff_fields,
+           "params_max_abs_err": err, "f1_abs_err": f1_err, "atol": {"params": PARAM_ATOL, "f1": F1_ATOL}}
+    log(json.dumps(row))
+    if diff_fields or diff_metrics or not (err <= PARAM_ATOL and f1_err <= F1_ATOL):
+        raise AssertionError(f"seed 1 of run_batch differs from its solo run: {row}")
+    return launches
 
 
 def sgd_sensitivity(torch, sim, cfg, backend, data, draws, dev) -> float:
@@ -1005,6 +1310,13 @@ def main() -> int:
                                               "swa_attention", prefix="sc_", plain_runs=2, route="launches_tc")
     phase_rolling_wrap(torch, dev)
 
+    # --- phase 9a: the scenario axes at paper width ---
+    torch.cuda.empty_cache()
+    scenario_launches = phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi)
+
+    # --- phase 9b: run_batch at paper width ---
+    batch_launches = phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, gpu_s)
+
     # --- phase 8: every ported kernel, then the result ---
     def entry(name, source, replaces, rows, count):
         out = {
@@ -1034,11 +1346,17 @@ def main() -> int:
     swa.update(launches_per_prefill=sc_launches["swa_attention"] // PREFILL_RUNS, route_launches=sc_routes,
                bf16_bound_share=swa_row["bf16_bound_share"], fp32_route_ms=swa_row["fp32_route_ms"],
                bound_fp32_route_ms=swa_row["bound_fp32_route_ms"])
-    log(json.dumps({"kernels": [
+    ehfl = [
         entry("vaoi_distance", "src/repro_torch/csrc/vaoi_distance.cu",
               "src/repro/kernels/vaoi_distance.py:49", kresults["vaoi_distance"], launches),
         entry("fedavg_reduce", "src/repro_torch/csrc/fedavg_reduce.cu",
               "src/repro/kernels/fedavg_reduce.py:36", kresults["fedavg_reduce"], launches),
+    ]
+    for e in ehfl:  # the launches of phase 9a's runs and 9b's batch
+        e.update(launches_scenarios=[c[e["name"]] for c in scenario_launches],
+                 launches_run_batch=batch_launches[e["name"]])
+    log(json.dumps({"kernels": [
+        *ehfl,
         ssd,
         swa,
     ]}))

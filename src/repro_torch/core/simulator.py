@@ -9,25 +9,28 @@ gathered into a ``PolicySpec.max_active``-lane slab); FedAvg goes through
 the ``fedavg_reduce`` kernel and Eq. 5 + Eq. 7 through ``vaoi_distance``.
 On CUDA tensors those are the Hopper kernels; on CPU tensors their plain
 versions (``kernels.ops``).  Random draws come from a ``core.draws`` source.
-
-Not ported yet (ROADMAP.md queue 1): ``run_batch``, the fleet, the
-non-default harvest, stream and channel scenarios.
+The scenario axes (``core.harvest``, ``data.stream``, ``core.channel``)
+and the retry machine for lost uploads run as in the reference;
+:func:`run_batch` is the seed axis.  The fleet is not ported yet (ROADMAP.md
+queue 1 #8).
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch.func import vmap
 from torch.profiler import record_function
 
+from repro_torch.core import channel as channel_lib
 from repro_torch.core import energy as energy_lib
 from repro_torch.core import harvest as harvest_lib
 from repro_torch.core import policies as policy_lib
 from repro_torch.core.draws import DrawSource, EpochDraws, TorchDraws, sgd_batch_size
+from repro_torch.data import stream as stream_lib
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.optim import sgd_update
@@ -53,13 +56,16 @@ class EHFLConfig:
     seed: int = 0
     eval_every: int = 10
     aux_note: str = ""
-    # scenario axes: only the defaults are ported (ROADMAP.md queue 1)
+    # scenario axes: (name, value) tuples keep the config frozen/hashable
     harvest: str = "bernoulli"
     harvest_params: Tuple[Tuple[str, float], ...] = ()
     stream: str = "static"
     stream_params: Tuple[Tuple[str, float], ...] = ()
     channel: str = "ideal"
     channel_params: Tuple[Tuple[str, float], ...] = ()
+    # retry machine for failed uploads: a failed carrier re-queues with
+    # capped exponential backoff (skip min(2^(attempts-1), backoff_cap)
+    # epochs) and is dropped after max_retries failures
     max_retries: int = 3
     backoff_cap: int = 8
     # active-set compaction: "auto" compacts whenever the policy's slab is
@@ -69,17 +75,16 @@ class EHFLConfig:
     def harvest_process(self) -> harvest_lib.HarvestProcess:
         return harvest_lib.make_process(self.harvest, p_bc=self.p_bc, **dict(self.harvest_params))
 
-    def check_ported(self) -> None:
-        """Raise for the scenario axes this slice of the port lacks."""
-        self.harvest_process()
-        if self.stream != "static" or self.stream_params:
-            raise NotImplementedError(
-                f"stream {self.stream!r} is not ported yet (ROADMAP.md queue 1, 'Scenario axes')"
-            )
-        if self.channel != "ideal" or self.channel_params:
-            raise NotImplementedError(
-                f"channel {self.channel!r} is not ported yet (ROADMAP.md queue 1, 'Scenario axes')"
-            )
+    def data_stream(self, num_classes: int | None = None) -> stream_lib.DataStream:
+        """``num_classes`` is the dataset's class count (the simulator passes
+        ``backend.num_classes``); an explicit ``stream_params`` entry wins."""
+        params = dict(self.stream_params)
+        if num_classes is not None and self.stream in stream_lib.CLASS_CONDITIONED:
+            params.setdefault("num_classes", num_classes)
+        return stream_lib.make_stream(self.stream, **params)
+
+    def channel_process(self) -> channel_lib.ChannelProcess:
+        return channel_lib.make_channel(self.channel, **dict(self.channel_params))
 
 
 class Backend(NamedTuple):
@@ -102,9 +107,12 @@ class EpochCarry(NamedTuple):
     battery: torch.Tensor  # (N,) int32
     pending: torch.Tensor  # (N,) bool
     counter: torch.Tensor  # (N,) int32
-    # scenario state of the reference; None / all-zero on the ported defaults
+    # carried scenario state (None for the stateless defaults): the harvest
+    # process's, the stream's and the channel's
     harvest: Any = None
     stream: Any = None
+    # retry machine: failed delivery attempts of the pending message, and
+    # epochs left to sit out before re-contending; all-zero on ``ideal``
     retries: Any = None  # (N,) int32
     backoff: Any = None  # (N,) int32
     channel: Any = None
@@ -204,24 +212,47 @@ def resolve_compact_cap(cfg: EHFLConfig, spec: policy_lib.PolicySpec) -> int | N
     return cap
 
 
+def _tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
+    """``fn`` on every tensor of a scenario state or carry (tuples, dicts,
+    NamedTuples); other leaves (None, the diurnal clock) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
 def init_carry(
     cfg: EHFLConfig,
     backend: Backend,
     device: str | torch.device | None = None,
     params: Params | None = None,
     seed: int | None = None,
+    draws: DrawSource | None = None,
 ) -> EpochCarry:
     """Initial :class:`EpochCarry`.  ``params`` (e.g. the reference's init,
     through ``checkpoint.convert``) replaces the random init drawn from
-    ``seed`` (default ``cfg.seed``)."""
+    ``seed`` (default ``cfg.seed``).  The scenarios' carried state is built
+    from ``draws.init`` (default ``TorchDraws(seed)``), harvest, then
+    stream, then channel, as the reference splits its keys."""
     device = resolve_device(device)
-    cfg.check_ported()
+    seed = cfg.seed if seed is None else seed
     n = cfg.num_clients
     if params is None:
-        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-        params = backend.init(gen, device)
+        params = backend.init(torch.Generator().manual_seed(seed), device)
     else:
         params = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
+    processes = (cfg.harvest_process(), cfg.data_stream(backend.num_classes), cfg.channel_process())
+    init_draws = (draws or TorchDraws(seed)).init(cfg, backend.num_classes)
+    state = [
+        _tree_map(lambda x: x.to(device), p.init(None if x is None else torch.as_tensor(x).to(device), n))
+        if p.persistent
+        else None
+        for p, x in zip(processes, init_draws)
+    ]
     zeros = lambda dtype: torch.zeros(n, dtype=dtype, device=device)
     return EpochCarry(
         global_params=params,
@@ -231,8 +262,11 @@ def init_carry(
         battery=zeros(torch.int32),
         pending=zeros(torch.bool),
         counter=zeros(torch.int32),
+        harvest=state[0],
+        stream=state[1],
         retries=zeros(torch.int32),
         backoff=zeros(torch.int32),
+        channel=state[2],
     )
 
 
@@ -251,13 +285,24 @@ def epoch_body(
     backend: Backend,
     spec: policy_lib.PolicySpec,
     process: harvest_lib.HarvestProcess,
+    stream: stream_lib.DataStream,
+    channel: channel_lib.ChannelProcess,
 ) -> Tuple[EpochCarry, Dict[str, torch.Tensor]]:
     """One epoch of Alg. 1 over all N clients.  ``images``/``labels`` are
-    the per-client sample pools; ``draws`` are this epoch's random draws."""
+    the per-client sample pools, which ``stream`` turns into this epoch's
+    view; ``channel`` decides which uploads land; ``draws`` are this
+    epoch's random draws."""
     n, S, kappa = cfg.num_clients, cfg.slots_per_epoch, cfg.kappa
 
-    # --- CLIENTSELECT (Alg. 2) on the freshly-broadcast global model ---
+    # --- per-epoch data view (the probe batch comes from it too) ---
     # (the ``ehfl.*`` ranges name the layers in a torch.profiler trace)
+    stream_state = carry.stream
+    if stream.persistent:
+        with record_function("ehfl.stream"):
+            idx, stream_state = stream.step(carry.stream, t, labels, draws.stream)
+            images, labels = stream_lib.apply_view(idx, images, labels)
+
+    # --- CLIENTSELECT (Alg. 2) on the freshly-broadcast global model ---
     with record_function("ehfl.select"):
         selected = policy_lib.epoch_selection(spec, carry.age, t, cfg.k, draws.noise)
     if spec.uses_vaoi:
@@ -271,15 +316,42 @@ def epoch_body(
         m = torch.zeros(n, device=age.device)
 
     # --- slot-level energy dynamics ---
+    if process.persistent:
+        hstate = harvest_lib.begin(carry.harvest, draws.harvest, n, S)
+    else:
+        hstate = process.init(draws.harvest, n)
     st0 = energy_lib.init_slot_state(n, carry.battery.device, battery=carry.battery, S=S)
-    st0 = st0._replace(pending=carry.pending, counter=carry.counter, harvest=process.init(draws.harvest, n))
+    st0 = st0._replace(pending=carry.pending, counter=carry.counter, harvest=hstate)
     with record_function("ehfl.slot_scan"):
         st = energy_lib.scan_epoch(
             st0, S=S, kappa=kappa, e_max=cfg.e_max, process=process,
             want_fn=policy_lib.make_want_fn(spec, selected, S, kappa),
             count_opportunity_fn=policy_lib.make_opportunity_fn(spec, selected, S, kappa),
+            # retry backoff holds a pending message (and its energy) for the epoch
+            tx_allowed=carry.backoff == 0,
         )
-    upload_mask = st.uploaded  # the ideal channel delivers every upload
+
+    # --- uplink channel + retry machine ---
+    # ``st.uploaded`` clients spent a transmission unit; the channel decides
+    # whose message landed.  A failed carrier stays pending (an old-carrier
+    # retransmission once its backoff ends), re-ages its VAoI by one version
+    # per failure, and is dropped after max_retries; no energy is refunded.
+    with record_function("ehfl.channel"):
+        delivered, channel_state = channel.step(carry.channel, st.uploaded, draws.channel)
+        failed = st.uploaded & ~delivered
+        attempts = carry.retries + failed.to(torch.int32)
+        dropped = failed & (attempts >= cfg.max_retries)
+        retrying = failed & ~dropped
+        # capped exponential backoff min(2^(attempts-1), cap), the shift
+        # clamped at 30 (it is read only where attempts >= 1)
+        boff = torch.clamp(torch.ones_like(attempts) << torch.clamp(attempts - 1, 0, 30), max=cfg.backoff_cap)
+        zero = torch.zeros_like(attempts)
+        retries = torch.where(delivered | dropped, zero, torch.where(retrying, attempts, carry.retries))
+        backoff = torch.where(retrying, boff, torch.clamp(carry.backoff - 1, min=0))
+        pending = st.pending | retrying
+        # a lost version is one more version the server is behind by
+        age = age + failed.to(age.dtype)
+    upload_mask = delivered
 
     # --- local training (only VAoI policies read the Eq. 6 moment h) ---
     pending_in = carry.pending  # entered the epoch with an unsent (old) message?
@@ -333,16 +405,20 @@ def epoch_body(
         with record_function("ehfl.fedavg"):
             new_global = _compact_mean(trained, slab_new, carry.msg_params, old_mask, carry.global_params)
 
-    zero = torch.zeros((), dtype=torch.int64, device=age.device)
     metrics = {
         "energy": st.energy_used.sum(),
         "avg_age": age.sum() / n,
         "n_started": st.started.sum(),
+        # n_uploaded counts attempts (energy spent); n_delivered what landed
         "n_uploaded": st.uploaded.sum(),
         "avg_m": m.sum() / n,
         "n_delivered": upload_mask.sum(),
-        "n_failed": zero,
-        "n_dropped": zero,
+        "n_failed": failed.sum(),
+        "n_dropped": dropped.sum(),
+        # retransmissions of a message that failed before: attempted (each an
+        # old-carrier row of the FedAvg, weighted by delivery) and delivered
+        "n_retried": (st.uploaded & (carry.retries > 0)).sum(),
+        "n_resent": (upload_mask & (carry.retries > 0)).sum(),
         "selected": selected,  # (N,) mask: lets two runs compare selections exactly
     }
     return (
@@ -352,8 +428,13 @@ def epoch_body(
             h=h,
             age=age,
             battery=st.battery,
-            pending=st.pending,
+            pending=pending,
             counter=st.counter,
+            harvest=st.harvest[0] if process.persistent else None,
+            stream=stream_state,
+            retries=retries,
+            backoff=backoff,
+            channel=channel_state,
         ),
         metrics,
     )
@@ -363,12 +444,11 @@ def make_epoch_fn(
     cfg: EHFLConfig, backend: Backend, data: Dict[str, torch.Tensor]
 ) -> Callable[[EpochCarry, int, EpochDraws], Tuple[EpochCarry, Dict[str, torch.Tensor]]]:
     """One epoch of Alg. 1 as a ``(carry, t, draws) -> (carry, metrics)`` function."""
-    cfg.check_ported()
     spec = policy_lib.make_policy(cfg.policy, num_clients=cfg.num_clients, k=cfg.k, num_groups=cfg.num_groups)
-    process = cfg.harvest_process()
+    process, stream, channel = cfg.harvest_process(), cfg.data_stream(backend.num_classes), cfg.channel_process()
     return lambda carry, t, draws: epoch_body(
         carry, t, data["images"], data["labels"], draws,
-        cfg=cfg, backend=backend, spec=spec, process=process,
+        cfg=cfg, backend=backend, spec=spec, process=process, stream=stream, channel=channel,
     )
 
 
@@ -436,6 +516,66 @@ def run_simulation(
     random initial global model; ``device=None`` means the GPU."""
     device = resolve_device(device)
     data = to_device_data(data, device)
-    carry = init_carry(cfg, backend, device, params=params)
+    draws = draws or TorchDraws(cfg.seed)
+    carry = init_carry(cfg, backend, device, params=params, draws=draws)
     epoch_fn = make_epoch_fn(cfg, backend, data)
-    return drive_epochs(epoch_fn, carry, cfg, backend, data, draws or TorchDraws(cfg.seed))
+    return drive_epochs(epoch_fn, carry, cfg, backend, data, draws)
+
+
+def _stack(trees: Sequence[Any]) -> Any:
+    """Stack per-seed results along a new leading axis: tensors with
+    ``torch.stack``, Python numbers (the diurnal clock) as a tensor,
+    containers leaf by leaf; None stays None."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(list(trees))
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        items = [_stack(list(col)) for col in zip(*trees)]
+        return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
+    if first is None:
+        return None
+    return torch.tensor(list(trees))
+
+
+def run_batch(
+    cfg: EHFLConfig,
+    backend: Backend,
+    data: Dict[str, Any],
+    seeds: Sequence[int],
+    *,
+    draws: Sequence[DrawSource] | None = None,
+    params: Sequence[Params] | None = None,
+    device: str | torch.device | None = None,
+) -> Dict[str, Any]:
+    """Multi-seed sweep: seed i runs exactly as
+    ``run_simulation(replace(cfg, seed=seeds[i]), ...)`` with ``draws[i]``
+    (default ``TorchDraws(seeds[i])``) and ``params[i]`` (default its random
+    init), one after the other on one device; ``data`` is shared (one
+    partition, many scheduling runs).
+
+    Returns :func:`run_simulation`'s dict with a leading seed axis on every
+    metric, ``global_params`` and ``carry`` leaf, except
+    ``metrics["f1_epochs"]``, the shared eval schedule, which stays 1-D;
+    ``total_energy`` is (R,)."""
+    seeds = [int(s) for s in seeds]
+    for name, per_seed in (("draws", draws), ("params", params)):
+        if per_seed is not None and len(per_seed) != len(seeds):
+            raise ValueError(f"{name} has {len(per_seed)} entries for {len(seeds)} seeds")
+    device = resolve_device(device)
+    data = to_device_data(data, device)
+    outs = [
+        run_simulation(
+            replace(cfg, seed=seed), backend, data, device=device,
+            draws=None if draws is None else draws[i], params=None if params is None else params[i],
+        )
+        for i, seed in enumerate(seeds)
+    ]
+    metrics = _stack([o["metrics"] for o in outs])
+    metrics["f1_epochs"] = outs[0]["metrics"]["f1_epochs"]
+    return {
+        "metrics": metrics,
+        "global_params": _stack([o["global_params"] for o in outs]),
+        "carry": _stack([o["carry"] for o in outs]),
+    }

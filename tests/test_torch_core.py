@@ -139,8 +139,9 @@ def test_tx_allowed_gate_matches():
 
 
 def test_unported_scenarios_raise():
-    for name in ("markov", "diurnal", "hetero"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tharvest.make_process(name, p_bc=0.1)
-    with pytest.raises(ValueError):
+    """Every scenario of the reference is ported; only an unknown name raises."""
+    assert tharvest.SCENARIOS == jharvest.SCENARIOS
+    for name in tharvest.SCENARIOS:
+        assert tharvest.make_process(name, p_bc=0.1).name == name
+    with pytest.raises(ValueError, match="known"):
         tharvest.make_process("solar", p_bc=0.1)

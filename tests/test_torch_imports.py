@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; and its entry
-points never quietly fall back to the CPU."""
+"""The port stands alone: no module of ``src/repro_torch/``, no torch
+example (``examples/*_torch.py``) and nothing in ``chip_smoke.py`` or the
+survey that drives it (``tools/ehfl_step_survey.py``) imports ``jax`` or the
+JAX package ``repro``; and its entry points never quietly
+fall back to the CPU."""
 import ast
 from pathlib import Path
 
@@ -9,7 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (
+    sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    + sorted((ROOT / "examples").glob("*_torch.py"))
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "ehfl_step_survey.py"]
+)
 
 
 def imported_modules(path: Path):
@@ -23,6 +29,8 @@ def imported_modules(path: Path):
 def test_port_files_exist():
     assert len(PORT_FILES) > 20
     assert (ROOT / "chip_smoke.py").exists()
+    names = {p.name for p in PORT_FILES}
+    assert {"channel.py", "stream.py", "ehfl_cifar_torch.py", "serve_demo_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -34,7 +42,7 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize(
     "entry",
     [
-        "run_simulation", "init_carry", "make_federated_dataset",
+        "run_simulation", "run_batch", "init_carry", "make_federated_dataset",
         "decoder.init_params", "decoder.init_cache", "decoder_params_from_reference",
         "starcoder2.init_params", "starcoder2.init_cache", "starcoder2.params_from_reference",
     ],
@@ -42,7 +50,7 @@ def test_no_jax_or_reference_imports(path):
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
     from repro_torch.checkpoint.convert import decoder_params_from_reference
     from repro_torch.configs import CNNConfig, get_config, reduced
-    from repro_torch.core import EHFLConfig, init_carry, run_simulation
+    from repro_torch.core import EHFLConfig, init_carry, run_batch, run_simulation
     from repro_torch.data import make_federated_dataset
     from repro_torch.fl import cnn_backend
     from repro_torch.models import decoder
@@ -54,6 +62,7 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
     sc = reduced(get_config("starcoder2-3b"))
     calls = {
         "run_simulation": lambda: run_simulation(cfg, cnn_backend(tiny), {}),
+        "run_batch": lambda: run_batch(cfg, cnn_backend(tiny), {}, [0, 1]),
         "decoder.init_params": lambda: decoder.init_params(lm),
         "decoder.init_cache": lambda: decoder.init_cache(lm, 1, 8),
         "decoder_params_from_reference": lambda: decoder_params_from_reference({"blocks": ({},)}, lm),
@@ -68,12 +77,17 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
 
 
 def test_unported_config_axes_raise():
-    from repro_torch.core import EHFLConfig
+    """Every scenario axis is ported: each scenario builds a carry; only an
+    unknown scenario name raises."""
+    from repro_torch.core import CHANNEL_SCENARIOS, SCENARIOS, STREAM_SCENARIOS, EHFLConfig
     from repro_torch.core.simulator import init_carry
     from repro_torch.configs import CNNConfig
     from repro_torch.fl import cnn_backend
 
     backend = cnn_backend(CNNConfig(image_size=8, conv_channels=(2,) * 6, fc_dims=(4, 4)))
-    for kw in ({"stream": "drift"}, {"channel": "erasure"}, {"harvest": "markov"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_carry(EHFLConfig(num_clients=2, **kw), backend, device="cpu")
+    axes = (("harvest", SCENARIOS), ("stream", STREAM_SCENARIOS), ("channel", CHANNEL_SCENARIOS))
+    for axis, names in axes:
+        for name in names:
+            init_carry(EHFLConfig(num_clients=2, **{axis: name}), backend, device="cpu")
+        with pytest.raises(ValueError, match="known"):
+            init_carry(EHFLConfig(num_clients=2, **{axis: "bogus"}), backend, device="cpu")
