@@ -13,9 +13,19 @@ result line):
    (the bf16 tensor-core instances the prefills run, ssd_scan's at ds = 128
    and swa_attention's at D = 128, must not spill).
 3. Kernels against their plain PyTorch versions on the card, at the main
-   paths' shapes (timed with CUDA events; the sub-0.1 ms EHFL kernels also
-   by their device time under torch.profiler, without the wrapper's host
-   time) and over ragged fp32/bf16 sweeps; ssd_scan and swa_attention at
+   paths' shapes (timed with CUDA events; the EHFL kernels also by their
+   device time under torch.profiler, without the wrapper's host time) and
+   over ragged fp32/bf16 sweeps.  vaoi_distance at (100, 10) beside its
+   launch floor (the wrapper's whole path into an empty kernel on the same
+   grid) and ``vector_norm``, the three timed in turns, and the wrapper
+   path's steps on the host clock; fedavg_reduce in the TPU kernel's signature at
+   (10, 845,738) and (100, 845,738) beside ``torch.mv``, then the main
+   path's launch, the leaf table (the CNN's 18 leaves, a slab group of 10
+   rows and an old-carrier group of 100, read in place), beside its byte
+   bound, its plain version and the library route it replaces (two
+   ``torch.cat``, two ``torch.mv``, the add); a ragged sweep of the leaf
+   table whose 110-row tables hold non-finite values under weight 0, which
+   must come out NaN in exactly their columns; ssd_scan and swa_attention at
    their prefill shapes both in bf16 on their tensor-core routes (each
    element within ``ssd_bf16_limit`` / ``bf16_limit``; a plain scan without
    the state's decay across chunks, and a plain attention one key tile
@@ -26,10 +36,15 @@ result line):
    CNN, N=100 clients x 300 samples, k=10, S=30, kappa=20, a 500-image test
    set) for T epochs on the GPU, with ``TorchDraws(seed=0)``.  Only the depth
    T is cut (the paper runs 500 epochs).  The kernel launch counters must
-   read T for vaoi_distance and 2T for fedavg_reduce.
+   read T for vaoi_distance and T for fedavg_reduce (one leaf-table launch
+   an epoch reduces both the slab and the old-carrier stack), and
+   fedavg_reduce's row-group counter 2T.
 5. The same run on the CPU (plain versions, same data, init and draws):
    integer dynamics, ages and selections equal exactly; params and f1
-   within the stated fp32 tolerances.
+   within the stated fp32 tolerances.  The last GPU epoch runs under
+   torch.profiler: each ``ehfl.*`` layer's host and device time, and
+   ``ehfl.fedavg`` must hold no ``aten::cat`` and no concatenation kernel
+   (9a's profiled epochs too).
 6. The serving slice: ``mamba2-1.3b`` at its published width and depth
    (48 layers, d 2048, vocab 50280, bf16), random weights from
    ``torch.Generator`` seed 0 on the card.  (a) ``make_prefill_step`` on
@@ -65,7 +80,8 @@ result line):
    with period 60 + shift with period 4 + aloha with 2 channels), each
    printing its epoch time, clients trained per second, f1 and the
    channel's failed and dropped totals; each must launch vaoi_distance T
-   and fedavg_reduce 2T times, fail some uploads, send retrying carriers
+   and fedavg_reduce T times over 2T row groups, fail some uploads, send
+   retrying carriers
    through the old-carrier pass and account every attempt (n_delivered +
    n_failed = n_uploaded); some retransmission must land over the three.
    The first is held against the CPU epoch by epoch from shared state for
@@ -75,8 +91,9 @@ result line):
    (each step from the GPU's weights within STEP_ATOL of the GPU's step),
    and the free-running spreads (GPU against itself, GPU against the
    unforced CPU) are printed beside it.
-9b. ``run_batch`` over seeds 0, 1, 2 at phase 4's width and depth: 3T and
-   6T launches, the output shapes, per-seed epoch time and seeds per hour
+9b. ``run_batch`` over seeds 0, 1, 2 at phase 4's width and depth: 3T
+   launches of each kernel and 6T fedavg_reduce row groups, the output
+   shapes, per-seed epoch time and seeds per hour
    at T=500; then, under cuDNN's deterministic algorithms, seed 1 of the
    batch against a solo run of seed 1 (integer fields and selections
    exactly, params within phase 5's tolerance).
@@ -200,8 +217,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 25, warmup: int = 5) -> float:
-    """Median device time of ``fn`` over ``iters`` runs, after ``warmup``."""
+def event_samples(fn, iters: int, warmup: int = 5) -> list:
+    """CUDA-event times (ms) of ``iters`` back-to-back runs of ``fn``, after
+    ``warmup``.  Where ``fn`` is host-bound they read its host time."""
     import torch
 
     for _ in range(warmup):
@@ -215,13 +233,32 @@ def time_ms(fn, iters: int = 25, warmup: int = 5) -> float:
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def time_ms(fn, iters: int = 25, warmup: int = 5) -> float:
+    """Median device time of ``fn`` over ``iters`` runs, after ``warmup``."""
+    return statistics.median(event_samples(fn, iters, warmup))
+
+
+def interleaved_ms(fns: dict, iters: int, rounds: int = 4) -> dict:
+    """Median event time of each of ``fns`` over ``iters`` runs, taken in
+    ``rounds`` turns through all of them, so that a drift of the shared
+    host's speed falls on each alike."""
+    samples = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            samples[name] += event_samples(fn, iters // rounds)
+    return {name: statistics.median(x) for name, x in samples.items()}
 
 
 def device_ms(fn, iters: int = 20) -> dict:
     """Device time per call of ``fn``: the CUDA kernels' durations under
-    torch.profiler, summed over ``iters`` calls after one warm-up, so the
-    host time of a Python wrapper does not count; and kernels per call."""
+    torch.profiler over ``iters`` calls after one warm-up, so the host time
+    of a Python wrapper does not count; and the kernels captured per call.
+    The profiler can miss a few launches, so each kernel name counts its
+    mean duration times its launches per call (its captured count over
+    ``iters``, rounded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -232,9 +269,12 @@ def device_ms(fn, iters: int = 20) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {"ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters,
-            "kernels_per_call": len(kernels) / iters}
+    durations = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return {"ms": sum(statistics.mean(d) * max(1, round(len(d) / iters)) for d in durations.values()) / 1e3,
+            "kernels_per_call": sum(len(d) for d in durations.values()) / iters}
 
 
 def add_device_ms(row: dict, kernel, library) -> None:
@@ -252,12 +292,145 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float,
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev):
-    """Phase 3 (EHFL kernels).  Returns per-kernel main-path numbers for the final line."""
+# The EHFL kernels are microseconds long and their callers host-bound: their
+# per-call event times (and their library calls') are medians over EHFL_ITERS.
+EHFL_ITERS = 200
+# the main path's FedAvg rows: the slab (5 of 10 upload) and the old-carrier
+# stack (5 of 100 carry an old message)
+SLAB_ROWS, OLD_ROWS, SLAB_UP, OLD_UP = 10, 100, 5, 5
+# The leaf table against its plain version, fp32 and bf16 alike: both read
+# bf16 exactly into fp32 and accumulate in fp32, so they part only by the
+# order of the sum (one dropped row of 110 would miss by about 0.01).
+LEAF_TOL = 1e-5
+
+
+def cnn_leaf_table(torch, g, dev):
+    """The main path's FedAvg table: the paper CNN's 18 leaves (sorted
+    names), a slab group of SLAB_ROWS rows and an old-carrier group of
+    OLD_ROWS, fp32, with SLAB_UP and OLD_UP nonzero weights."""
+    from repro_torch.configs import CONFIG
+    from repro_torch.models.cnn import init_params
+
+    shapes = {k: v.shape for k, v in init_params(CONFIG, torch.Generator().manual_seed(0), torch.device("cpu")).items()}
+    groups = []
+    for k, up in ((SLAB_ROWS, SLAB_UP), (OLD_ROWS, OLD_UP)):
+        w = torch.zeros(k)
+        w[torch.randperm(k, generator=g)[:up]] = 1.0
+        groups.append(([torch.randn(k, *shapes[n], generator=g).to(dev) for n in sorted(shapes)], w.to(dev)))
+    return groups
+
+
+def flatten_route(torch, groups):
+    """The library route the leaf-table launch replaces: each group's leaves
+    concatenated (``torch.cat``), reduced by ``torch.mv``, the two added."""
+    out = None
+    for leaves, w in groups:
+        part = torch.mv(torch.cat([t.reshape(t.shape[0], -1) for t in leaves], 1).T, w)
+        out = part if out is None else out + part
+    return out
+
+
+def ragged_leaf_tables(torch, g, dev):
+    """Leaf tables of the sweep, one and two groups (SLAB_ROWS + OLD_ROWS
+    rows), fp32 and bf16: column counts that are and are not multiples of 4,
+    a leaf whose base is not 16-byte aligned (a contiguous view one element
+    into its storage), 32 leaves (the table's most).  Every fourth weight is
+    0 and each group's weights sum to 1; in the two-group tables each leaf
+    holds -Inf in a zero-weight slab row (column 0) and +Inf in a
+    zero-weight old row (its last column), whose columns must come out NaN.
+    Yields (groups, dtype, NaN columns expected)."""
+    layouts = [(1, 3, 10, 37, 4096), (4096, 10, 1280, 32, 845), (5, 2049, 7, 1000, 9),
+               tuple(int(c) for c in torch.randint(1, 3000, (32,), generator=g))]
+    for dtype in (torch.float32, torch.bfloat16):
+        for cols in layouts:
+            for n_groups in (1, 2):
+                groups = []
+                for k in (SLAB_ROWS, OLD_ROWS)[:n_groups]:
+                    leaves = []
+                    for j, c in enumerate(cols):
+                        leaf = torch.randn(k, c, generator=g).to(dtype)
+                        if n_groups == 2 and k == SLAB_ROWS:
+                            leaf[4, 0] = -float("inf")
+                        elif n_groups == 2:
+                            leaf[0, c - 1] = float("inf")
+                        if j == 1:  # a contiguous leaf whose base is one element off alignment
+                            leaves.append(torch.empty(k * c + 1, dtype=dtype, device=dev)[1:].view(k, c).copy_(leaf))
+                        else:
+                            leaves.append(leaf.to(dev))
+                    w = torch.rand(k, generator=g)
+                    w[::4] = 0.0
+                    groups.append((leaves, (w / w.sum()).to(dev)))
+                nan_cols = sum(1 if c == 1 else 2 for c in cols) if n_groups == 2 else 0
+                yield groups, dtype, nan_cols
+
+
+def host_ms(fns: dict, iters: int = 2000, rounds: int = 6) -> dict:
+    """Host time (ms) per call of each of ``fns``: the host clock over
+    ``iters`` back-to-back calls, in ``rounds`` turns through all of them,
+    the median round.  For steps too short for a CUDA event pair, whose own
+    cost (about 14 us) would drown them."""
+    import torch
+
+    samples = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            samples[name].append((time.perf_counter() - t0) * 1e3 / iters)
+            torch.cuda.synchronize()
+    return {name: statistics.median(x) for name, x in samples.items()}
+
+
+def vaoi_host_path(torch, v, h, age, q, dev) -> dict:
+    """Where a vaoi_distance call's time goes, on the host clock
+    (:func:`host_ms`): the whole call, its launch floor, each step of the
+    wrapper's path on its own, and their sum; beside them the outputs as
+    one (2, N) tensor split by ``unbind`` (the path's alternative), and the
+    library route and its two calls."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vaoi_distance as kv
+
+    n, f = v.shape
+    m, a = torch.empty_like(age), torch.empty_like(age)
+    empty = kv._launcher("vaoi_empty_launch")
+    stream = build.launch_stream("vaoi_distance", v.get_device())
+    params = kv._ARGS.pack(v.data_ptr(), h.data_ptr(), age.data_ptr(), q.data_ptr(), m.data_ptr(), a.data_ptr(),
+                           stream, 0.5, n, f, False)
+    d = v - h
+    steps = {
+        "check_inputs": lambda: kv.check_inputs(v, h, age, q),
+        "get_device_x4": lambda: (v.get_device(), h.get_device(), age.get_device(), q.get_device()),
+        "launch_stream": lambda: build.launch_stream("vaoi_distance", 0),
+        "outputs_empty_like_x2": lambda: (torch.empty_like(age), torch.empty_like(age)),
+        "pack_params": lambda: kv._ARGS.pack(v.data_ptr(), h.data_ptr(), age.data_ptr(), q.data_ptr(),
+                                             m.data_ptr(), a.data_ptr(), stream, 0.5, n, f, False),
+        "ctypes_empty_launch": lambda: empty(params),
+    }
+    timed = host_ms({
+        "vaoi_distance": lambda: kv.vaoi_distance(v, h, age, q, 0.5),
+        "launch_floor": lambda: kv.launch_floor(v, h, age, q, 0.5),
+        **steps,
+        "outputs_2n_unbind": lambda: torch.empty(2, n, dtype=torch.float32, device=v.device).unbind(),
+        "library": lambda: torch.linalg.vector_norm(v - h, dim=1),
+        "library_sub": lambda: v - h,
+        "library_vector_norm": lambda: torch.linalg.vector_norm(d, dim=1),
+    })
+    return {**timed, "sum_of_steps": sum(timed[k] for k in steps)}
+
+
+def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, dev):
+    """Phase 3 (EHFL kernels).  Returns per-kernel main-path numbers for the
+    final line: vaoi_distance beside its launch floor, and fedavg_reduce's
+    leaf-table launch at the main path's layout (the single-matrix calls of
+    the TPU kernel's signature are timed beside it)."""
     g = torch.Generator().manual_seed(0)
     results = {}
 
-    # --- vaoi_distance at the main path's (N, F) = (100, 10) ---
+    # --- vaoi_distance at the main path's (N, F) = (100, 10), beside the launch floor ---
     n, f = 100, 10
     v = torch.softmax(torch.randn(n, f, generator=g), -1).to(dev)
     h = torch.softmax(torch.randn(n, f, generator=g), -1).to(dev)
@@ -269,46 +442,77 @@ def phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev):
     if not err <= 1e-5:
         raise AssertionError(f"vaoi_distance (100, 10) disagrees with its plain version: {err}")
     b_ms, b_by = bound(2 * n * f * 4 + 4 * n * 4, 3 * n * f + 4 * n)
+    kernel, floor = (lambda: kern_vaoi(v, h, age, q, 0.5)), (lambda: vaoi_floor(v, h, age, q, 0.5))
+    library = lambda: torch.linalg.vector_norm(v - h, dim=1)  # noqa: E731
+    timed = interleaved_ms({"ms": kernel, "launch_floor_ms": floor, "library_ms": library}, EHFL_ITERS)
     row = {
-        "kernel": "vaoi_distance", "shape": [n, f], "dtype": "float32", "max_abs_err": err, "tol": 1e-5,
-        "ms": time_ms(lambda: kern_vaoi(v, h, age, q, 0.5)),
+        "kernel": "vaoi_distance", "shape": [n, f], "dtype": "float32", "design": "one thread per row (F <= 32)",
+        "max_abs_err": err, "tol": 1e-5, **timed,
         "plain_ms": time_ms(lambda: ref.vaoi_distance_ref(v, h, age, q, 0.5)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: torch.linalg.vector_norm(v - h, dim=1)),
+        "bound_ms": b_ms, "bound_by": b_by, "launch_floor_device_ms": device_ms(floor, EHFL_ITERS)["ms"],
     }
-    add_device_ms(row, lambda: kern_vaoi(v, h, age, q, 0.5), lambda: torch.linalg.vector_norm(v - h, dim=1))
+    add_device_ms(row, kernel, library)
+    row.update(bound_with_launch_floor_ms=max(b_ms, row["launch_floor_device_ms"]),
+               device_over_launch_floor=row["device_ms"] / row["launch_floor_device_ms"],
+               host_clock_ms=vaoi_host_path(torch, v, h, age, q, dev))
     log(json.dumps(row))
     results["vaoi_distance"] = [row]
 
-    # --- fedavg_reduce: the k-slab (10, P) and the old-carrier pass (100, P) ---
+    # --- fedavg_reduce in the TPU kernel's signature: the slab (10, P) and the old-carrier stack (100, P) ---
     p = 845_738
-    results["fedavg_reduce"] = []
-    for k, role in ((10, "slab"), (100, "old_carrier")):
+    single = []
+    for k, role in ((SLAB_ROWS, "slab"), (OLD_ROWS, "old_carrier")):
         msgs = torch.randn(k, p, generator=g).to(dev)
         w = (torch.rand(k, generator=g) < (0.5 if role == "slab" else 0.05)).float().to(dev)
-        out_k = kern_fedavg(msgs, w)
-        out_r = ref.fedavg_reduce_ref(msgs, w)
-        err = (out_k - out_r).abs().max().item()
+        err = (kern_fedavg(msgs, w) - ref.fedavg_reduce_ref(msgs, w)).abs().max().item()
         if not err <= 1e-5:
             raise AssertionError(f"fedavg_reduce ({k}, {p}) disagrees with its plain version: {err}")
         b_ms, b_by = bound(k * p * 4 + k * 4 + p * 4, 2 * k * p)
+        kernel, library = (lambda: kern_fedavg(msgs, w)), (lambda: torch.mv(msgs.T, w))
         row = {
-            "kernel": "fedavg_reduce", "role": role, "shape": [k, p], "dtype": "float32",
-            "max_abs_err": err, "tol": 1e-5,
-            "ms": time_ms(lambda: kern_fedavg(msgs, w)),
-            "plain_ms": time_ms(lambda: ref.fedavg_reduce_ref(msgs, w)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: torch.mv(msgs.T, w)),
+            "kernel": "fedavg_reduce", "role": f"single matrix, {role}", "shape": [k, p], "dtype": "float32",
+            "max_abs_err": err, "tol": 1e-5, "ms": time_ms(kernel, EHFL_ITERS),
+            "plain_ms": time_ms(lambda: ref.fedavg_reduce_ref(msgs, w)), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(library, EHFL_ITERS),
         }
-        add_device_ms(row, lambda: kern_fedavg(msgs, w), lambda: torch.mv(msgs.T, w))
+        add_device_ms(row, kernel, library)
         log(json.dumps(row))
-        results["fedavg_reduce"].append(row)
-        del msgs, out_k, out_r
+        single.append(row)
+        del msgs
 
-    # --- ragged fp32/bf16 sweep (tests/test_kernels.py's shapes and tolerances) ---
+    # --- the main path's launch: the leaf table, slab + old-carrier stack in place ---
+    groups = cnn_leaf_table(torch, g, dev)
+    rows_total = SLAB_ROWS + OLD_ROWS
+    p = sum(t[0].numel() for t in groups[0][0])
+    got, want = kern_leaves(groups), ref.fedavg_reduce_leaves_ref(groups)
+    err = (got - want).abs().max().item()
+    lib_err = (flatten_route(torch, groups) - want).abs().max().item()
+    if not (err <= 1e-5 and got.shape == (p,)):
+        raise AssertionError(f"fedavg_reduce's leaf table disagrees with its plain version: {err}")
+    b_ms, b_by = bound(rows_total * p * 4 + 4 * rows_total + 4 * p, 2 * rows_total * p)
+    kernel, library = (lambda: kern_leaves(groups)), (lambda: flatten_route(torch, groups))
+    plain = lambda: ref.fedavg_reduce_leaves_ref(groups)  # noqa: E731
+    row = {
+        "kernel": "fedavg_reduce", "role": "leaf table: slab + old-carrier stack, one launch (the main path)",
+        "shape": [[SLAB_ROWS, OLD_ROWS], p], "leaves": len(groups[0][0]), "nonzero_weights": [SLAB_UP, OLD_UP],
+        "dtype": "float32", "max_abs_err": err, "tol": 1e-5, "library_max_abs_err": lib_err,
+        "ms": time_ms(kernel, EHFL_ITERS), "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(library, EHFL_ITERS),
+        "library": "two torch.cat, two torch.mv, the add",
+    }
+    add_device_ms(row, kernel, library)
+    row.update(plain_device_ms=device_ms(plain)["ms"], device_bound_share=b_ms / row["device_ms"],
+               single_matrix=[{k: r[k] for k in ("role", "shape", "ms", "device_ms", "bound_ms", "library_ms",
+                                                   "library_device_ms")} for r in single])
+    log(json.dumps(row))
+    results["fedavg_reduce"] = [row]
+    del groups, got, want
+
+    # --- ragged fp32/bf16 sweeps (tests/test_kernels.py's shapes and tolerances) ---
     n_checked = 0
     for dtype, tv, tf in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 0.2, 0.05)):
-        for n, f in ((10, 10), (100, 10), (128, 512), (257, 300), (33, 1025), (100, 130), (10, 700), (5, 1025)):
+        for n, f in ((10, 10), (100, 10), (100, 16), (100, 32), (100, 33), (128, 512), (257, 300), (33, 1025),
+                     (100, 130), (10, 700), (5, 1025)):
             v = torch.randn(n, f, generator=g).to(dtype).to(dev)
             h = torch.randn(n, f, generator=g).to(dtype).to(dev)
             age = torch.randint(0, 9, (n,), generator=g).float().to(dev)
@@ -323,8 +527,19 @@ def phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev):
             w = (w / w.sum()).to(dev)
             torch.testing.assert_close(kern_fedavg(msgs, w), ref.fedavg_reduce_ref(msgs, w), rtol=tf, atol=tf)
             n_checked += 1
+    nan_columns = 0
+    for groups, dtype, nan_cols in ragged_leaf_tables(torch, g, dev):
+        got, want = kern_leaves(groups), ref.fedavg_reduce_leaves_ref(groups)
+        nan = torch.isnan(want)
+        if nan.sum().item() != nan_cols:
+            raise AssertionError(f"the plain version has {nan.sum().item()} NaN columns, not {nan_cols}")
+        if not torch.equal(torch.isnan(got), nan):
+            raise AssertionError(f"leaf table {[t.shape[1] for t in groups[0][0]]} {dtype}: NaN columns differ")
+        torch.testing.assert_close(got[~nan], want[~nan], rtol=LEAF_TOL, atol=LEAF_TOL)
+        nan_columns += nan.sum().item()
+        n_checked += 1
     torch.cuda.synchronize()
-    log(json.dumps({"phase": "kernel_sweep", "cases": n_checked, "ok": True}))
+    log(json.dumps({"phase": "kernel_sweep", "cases": n_checked, "leaf_table_nan_columns": nan_columns, "ok": True}))
     return results
 
 def ssd_inputs(torch, g, b, s, nh, hp, ds, dtype, dev, decay=1.0):
@@ -939,7 +1154,8 @@ def phase_cpu_vs_gpu(torch, sim, cfg, backend, data, TorchDraws, dev, phase4_met
     for t in range(epochs):
         cin = to_device(carry, cpu)
         if t == epochs - 1:
-            profile = profile_run(torch, lambda: epoch_gpu(carry, t, draws.epoch(t, cfg, n_samples, dev)), dev, "ehfl.")
+            profile = profile_run(torch, lambda: epoch_gpu(carry, t, draws.epoch(t, cfg, n_samples, dev)), dev, "ehfl.",
+                                  no_concat=("ehfl.fedavg",))
         draws_gpu, draws_cpu = draws.epoch(t, cfg, n_samples, dev), draws.epoch(t, cfg, n_samples, cpu)
         if stream.persistent:
             n_diff, dist = view_mismatches(torch, stream, carry.stream, cin.stream, t, dg, dc, draws_gpu, draws_cpu)
@@ -1049,12 +1265,13 @@ def check_channel_run(torch, m, name):
 def phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi):
     """Phase 9a: phase 4's paper-width run under three scenario
     combinations that cover every harvest, stream and channel scenario,
-    each counted (T vaoi_distance, 2T fedavg_reduce launches), checked
+    each counted (T vaoi_distance and T fedavg_reduce launches, 2T row
+    groups), checked
     (``check_channel_run``) and one further epoch profiled; the first is
     also held against the CPU epoch by epoch from shared state for 3
     epochs.  Returns the launch counts of the runs."""
     T = cfg.epochs
-    want = {"vaoi_distance": T, "fedavg_reduce": 2 * T, "ssd_scan": 0, "swa_attention": 0}
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
     counts, resent = [], 0
     dd = sim.to_device_data(data, dev)
     for name, kw in SCENARIO_RUNS:
@@ -1065,6 +1282,7 @@ def phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi):
         out = sim.run_simulation(scfg, backend, data, draws=draws, device=dev)
         wall = time.perf_counter() - t0
         launches = ops.launch_counts()
+        row_groups = ops.row_group_count()
         counts.append(launches)
         m = out["metrics"]
         for t in range(T):
@@ -1072,17 +1290,19 @@ def phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi):
                             **{k: m[k][t].item() for k in ("n_started", "n_uploaded", "n_delivered", "n_failed",
                                                             "n_dropped", "n_retried", "n_resent", "avg_age",
                                                             "energy")}}))
-        if launches != want:
-            raise AssertionError(f"{name}: kernel launches {launches} != {want}")
+        if launches != want or row_groups != 2 * T:
+            raise AssertionError(f"{name}: kernel launches {launches} != {want} or fedavg_reduce row groups "
+                                 f"{row_groups} != {2 * T}")
         check_channel_run(torch, m, name)
         resent += m["n_resent"].sum().item()
         if not all(torch.isfinite(v).all().item() for v in out["global_params"].values()):
             raise AssertionError(f"{name}: non-finite params")
         epoch_fn = sim.make_epoch_fn(scfg, backend, dd)
         profile = profile_run(torch, lambda: epoch_fn(out["carry"], T, draws.epoch(T, scfg, dd["images"].shape[1], dev)),
-                              dev, "ehfl.")
+                              dev, "ehfl.", no_concat=("ehfl.fedavg",))
         log(json.dumps({"phase": f"scenario_{name}_summary", "config": kw, "epochs": T,
-                        "wall_s": wall, "launches": launches, **run_summary(torch, m, T, smi),
+                        "wall_s": wall, "launches": launches, "fedavg_row_groups": row_groups,
+                        **run_summary(torch, m, T, smi),
                         "profile_epoch": profile}))
     if not resent > 0:
         raise AssertionError("no retransmission of a failed message landed in any scenario run")
@@ -1096,8 +1316,9 @@ def phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi):
 
 
 def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
-    """Phase 9b: ``run_batch`` at paper width over BATCH_SEEDS (3T and 6T
-    launches, the output shapes, the shared eval schedule), timed; then,
+    """Phase 9b: ``run_batch`` at paper width over BATCH_SEEDS (3T launches
+    of each kernel, 6T fedavg_reduce row groups, the output shapes, the
+    shared eval schedule), timed; then,
     under cuDNN's deterministic algorithms (this check only), seed 1 of the
     batch against a solo ``run_simulation(seed=1)``: integer fields and
     selections exactly, params within phase 5's tolerance.  Returns the
@@ -1107,10 +1328,11 @@ def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
     t0 = time.perf_counter()
     out = sim.run_batch(cfg, backend, data, BATCH_SEEDS, device=dev)
     wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    want = {"vaoi_distance": R * T, "fedavg_reduce": 2 * R * T, "ssd_scan": 0, "swa_attention": 0}
-    if launches != want:
-        raise AssertionError(f"run_batch: kernel launches {launches} != {want}")
+    launches, row_groups = ops.launch_counts(), ops.row_group_count()
+    want = {"vaoi_distance": R * T, "fedavg_reduce": R * T, "ssd_scan": 0, "swa_attention": 0}
+    if launches != want or row_groups != 2 * R * T:
+        raise AssertionError(f"run_batch: kernel launches {launches} != {want} or fedavg_reduce row groups "
+                             f"{row_groups} != {2 * R * T}")
     m = out["metrics"]
     n_evals = len(range(cfg.eval_every, T + 1, cfg.eval_every)) + (T % cfg.eval_every > 0)
     shapes_ok = (
@@ -1126,6 +1348,7 @@ def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
     steady = statistics.median(m["epoch_s"][:, 1:].flatten().tolist())
     log(json.dumps({
         "phase": "run_batch", "seeds": list(BATCH_SEEDS), "epochs": T, "wall_s": wall, "launches": launches,
+        "fedavg_row_groups": row_groups,
         "per_seed_steady_epoch_s": per_seed, "f1": m["f1"][:, -1].tolist(),
         "n_started": m["n_started"].sum(1).tolist(), "total_energy": m["total_energy"].tolist(),
         "seeds_per_hour_at_T500": 3600.0 / (500 * steady), "solo_wall_s_phase4": solo_wall_s,
@@ -1170,10 +1393,24 @@ def sgd_sensitivity(torch, sim, cfg, backend, data, draws, dev) -> float:
     return max_abs(a, b)
 
 
-def profile_run(torch, run, dev, prefix):
+# the port's kernel functions (csrc/*.cu), as the profiler names them
+PORT_KERNEL_NAMES = ("fedavg_leaves_kernel", "vaoi_distance", "ssd_", "swa_")
+
+
+def subtree(event):
+    """A profiler event and every CPU event under it."""
+    yield event
+    for child in event.cpu_children:
+        yield from subtree(child)
+
+
+def profile_run(torch, run, dev, prefix, no_concat=()):
     """One call of ``run`` under torch.profiler: its wall time, the device's
     busy time (the CUDA kernels' time summed), each ``prefix*`` range's host
-    time and the device time of the kernels it launched, and the top kernels."""
+    time, the device time of the kernels it launched, its ``aten::cat`` ops
+    and concatenation kernels (``CatArrayBatchedCopy*``) and the names of its
+    kernels; and the top kernels.  Each range named in ``no_concat`` must
+    run and hold no concatenation (the FedAvg layer reads leaves in place)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1188,19 +1425,31 @@ def profile_run(torch, run, dev, prefix):
     layers = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith(prefix):
-            row = layers.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0, "calls": 0})
+            row = layers.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0, "calls": 0, "cat_ops": 0,
+                                             "cat_kernels": 0, "kernel_names": []})
             row["host_ms"] += e.cpu_time_total / 1e3
             row["device_ms"] += e.device_time_total / 1e3
             row["calls"] += 1
+            under = list(subtree(e))
+            names = [k.name for x in under for k in x.kernels]
+            row["cat_ops"] += sum(x.name == "aten::cat" for x in under)
+            row["cat_kernels"] += sum("CatArrayBatchedCopy" in k for k in names)
+            row["kernel_names"] = sorted({*row["kernel_names"], *(k[:60] for k in names)})
     by_name = {}
     for e in kernels:
         row = by_name.setdefault(e.name[:80], {"name": e.name[:80], "device_ms": 0.0, "calls": 0})
         row["device_ms"] += e.time_range.elapsed_us() / 1e3
         row["calls"] += 1
+    for name in no_concat:
+        layer = layers.get(name)
+        if layer is None or layer["cat_ops"] or layer["cat_kernels"]:
+            raise AssertionError(f"{name} did not run or concatenates: {layer}")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": len(kernels), "layers": layers,
+        # the profiler does not attribute the ctypes launches to a range: the port's kernels by name
+        "port_kernels": [r for r in by_name.values() if any(k in r["name"] for k in PORT_KERNEL_NAMES)],
         "top": sorted(by_name.values(), key=lambda r: r["device_ms"], reverse=True)[:10],
     }
 
@@ -1223,8 +1472,10 @@ def main() -> int:
     from repro_torch.fl import cnn_backend
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.fedavg_reduce import fedavg_reduce as kern_fedavg
+    from repro_torch.kernels.fedavg_reduce import fedavg_reduce_leaves as kern_leaves
     from repro_torch.kernels.ssd_scan import ssd_scan as kern_ssd
     from repro_torch.kernels.swa_attention import swa_attention as kern_swa
+    from repro_torch.kernels.vaoi_distance import launch_floor as vaoi_floor
     from repro_torch.kernels.vaoi_distance import vaoi_distance as kern_vaoi
 
     # --- phase 1: device ---
@@ -1254,7 +1505,7 @@ def main() -> int:
             raise AssertionError(f"{name}'s bf16 tensor-core instance {prefill_instance} is missing or spills: {tc}")
 
     # --- phase 3: kernels against their plain versions ---
-    kresults = phase_kernels(torch, ref, kern_vaoi, kern_fedavg, dev)
+    kresults = phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, dev)
     kresults["ssd_scan"] = [phase_ssd_kernel(torch, ref, kern_ssd, dev)]
     kresults["swa_attention"] = [phase_swa_kernel(torch, ref, kern_swa, dev)]
 
@@ -1271,12 +1522,14 @@ def main() -> int:
     t0 = time.perf_counter()
     gpu = sim.run_simulation(cfg, backend, data, draws=TorchDraws(seed=0), device=dev)
     gpu_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    launches, row_groups = ops.launch_counts(), ops.row_group_count()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"vaoi_distance": T, "fedavg_reduce": 2 * T, "ssd_scan": 0, "swa_attention": 0}
-    log(json.dumps({"phase": "slice_gpu", "launches": launches, "expected": want}))
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want} on the main path")
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
+    log(json.dumps({"phase": "slice_gpu", "launches": launches, "expected": want, "fedavg_row_groups": row_groups,
+                    "expected_fedavg_row_groups": 2 * T}))
+    if launches != want or row_groups != 2 * T:
+        raise AssertionError(f"kernel launches {launches} != {want} or fedavg_reduce row groups {row_groups} != "
+                             f"{2 * T} on the main path")
     gm = gpu["metrics"]
     for t in range(T):
         log(json.dumps({
@@ -1355,6 +1608,13 @@ def main() -> int:
     for e in ehfl:  # the launches of phase 9a's runs and 9b's batch
         e.update(launches_scenarios=[c[e["name"]] for c in scenario_launches],
                  launches_run_batch=batch_launches[e["name"]])
+    vaoi_row, leaf_row = kresults["vaoi_distance"][0], kresults["fedavg_reduce"][0]
+    ehfl[0].update(design=vaoi_row["design"], **{k: vaoi_row[k] for k in (
+        "launch_floor_ms", "launch_floor_device_ms", "bound_with_launch_floor_ms", "device_over_launch_floor",
+        "host_clock_ms")})
+    ehfl[1].update(row_groups=row_groups, role=leaf_row["role"], library=leaf_row["library"],
+                   plain_device_ms=leaf_row["plain_device_ms"], device_bound_share=leaf_row["device_bound_share"],
+                   single_matrix=leaf_row["single_matrix"])
     log(json.dumps({"kernels": [
         *ehfl,
         ssd,

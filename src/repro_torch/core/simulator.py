@@ -152,35 +152,35 @@ def _local_train(
     return p, fsum / (cfg.kappa * bs) if with_feature else None
 
 
-def flatten_clients(stacked: Params) -> Tuple[torch.Tensor, List[Tuple[str, torch.Size, torch.dtype]]]:
-    """Ravel a stacked {name: (N, ...)} dict into one (N, P) matrix + layout
-    aux (the layout the ``fedavg_reduce`` kernel consumes)."""
+def client_leaves(stacked: Params) -> Tuple[List[torch.Tensor], List[Tuple[str, torch.Size, torch.dtype]]]:
+    """A stacked {name: (N, ...)} dict's leaves in sorted-name order (the
+    columns of the reference's ``flatten_clients``), unraveled, and the
+    layout aux that :func:`unflatten_clients` reads."""
     names = sorted(stacked)
-    flat = torch.cat([stacked[k].reshape(stacked[k].shape[0], -1) for k in names], dim=1)
-    return flat, [(k, stacked[k].shape[1:], stacked[k].dtype) for k in names]
+    return [stacked[k] for k in names], [(k, stacked[k].shape[1:], stacked[k].dtype) for k in names]
 
 
 def unflatten_clients(vec: torch.Tensor, aux: List[Tuple[str, torch.Size, torch.dtype]]) -> Params:
-    """Inverse of :func:`flatten_clients` for one aggregated (P,) vector."""
-    out, i = {}, 0
-    for name, shape, dtype in aux:
-        size = int(np.prod(shape, dtype=np.int64))
-        out[name] = vec[i : i + size].reshape(shape).to(dtype)
-        i += size
-    return out
+    """One aggregated (P,) vector back into the {name: tensor} dict (views
+    where the dtype is the vector's)."""
+    parts = vec.split([int(np.prod(shape, dtype=np.int64)) for _, shape, _ in aux])
+    return {name: part.view(shape).to(dtype) for (name, shape, dtype), part in zip(aux, parts)}
 
 
 def _keep_if_empty(mean: Params, cnt: torch.Tensor, fallback: Params) -> Params:
     # no upload this epoch -> the global model stays as it was
-    return {k: torch.where(cnt > 0, mean[k], fallback[k]) for k in mean}
+    keep = cnt > 0
+    return {k: torch.where(keep, mean[k], fallback[k]) for k in mean}
 
 
 def _masked_mean(stacked: Params, mask: torch.Tensor, fallback: Params) -> Params:
-    """FedAvg over the masked clients through one ``fedavg_reduce`` call
-    with normalized mask weights; ``fallback`` when nobody uploaded."""
-    cnt = mask.float().sum()
-    flat, aux = flatten_clients(stacked)
-    mean = unflatten_clients(kops.fedavg_reduce(flat, mask.float() / cnt.clamp(min=1.0)), aux)
+    """FedAvg over the masked clients through one ``fedavg_reduce`` launch
+    over the leaves with normalized mask weights; ``fallback`` when nobody
+    uploaded."""
+    w = mask.float()
+    cnt = w.sum()
+    leaves, aux = client_leaves(stacked)
+    mean = unflatten_clients(kops.fedavg_reduce_leaves([(leaves, w / cnt.clamp(min=1.0))]), aux)
     return _keep_if_empty(mean, cnt, fallback)
 
 
@@ -189,12 +189,14 @@ def _compact_mean(
 ) -> Params:
     """FedAvg for the compacted path: this epoch's fresh uploads live in the
     (cap, ...) training slab (``slab_mask``), while carriers of an OLD
-    message upload it from the N-wide ``old`` dict (``old_mask``).  Two
-    ``fedavg_reduce`` calls share one count."""
-    cnt = slab_mask.float().sum() + old_mask.float().sum()
-    sflat, aux = flatten_clients(slab)
-    oflat, _ = flatten_clients(old)
-    tot = kops.fedavg_reduce(sflat, slab_mask.float()) + kops.fedavg_reduce(oflat, old_mask.float())
+    message upload it from the N-wide ``old`` dict (``old_mask``).  One
+    ``fedavg_reduce`` launch reduces both groups, read in place, and adds
+    them (slab + old); they share one count."""
+    ws, wo = slab_mask.float(), old_mask.float()
+    cnt = ws.sum() + wo.sum()
+    slab_leaves, aux = client_leaves(slab)
+    old_leaves, _ = client_leaves(old)
+    tot = kops.fedavg_reduce_leaves([(slab_leaves, ws), (old_leaves, wo)])
     return _keep_if_empty(unflatten_clients(tot / cnt.clamp(min=1.0), aux), cnt, fallback)
 
 

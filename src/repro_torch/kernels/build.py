@@ -5,6 +5,7 @@ without PyTorch's headers.  One ``nvcc`` runs per source, all started
 together.  A library is named by a hash of its source and flags, so an edited
 source is rebuilt and an unchanged one is reused.  Nothing is compiled when a
 module is imported: the CPU has no ``nvcc`` and never needs one.
+:func:`launch_stream` is the launchers' common device check.
 """
 from __future__ import annotations
 
@@ -113,3 +114,21 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def launch_stream(what: str, index: int) -> int:
+    """The current stream's handle for a launch of kernel ``what`` on
+    tensors that all sit on device ``index`` (``Tensor.get_device()``: -1
+    on the CPU; the caller passes any other negative index for tensors on
+    more than one device).  Raises unless that is the current CUDA device:
+    the wrappers enter no ``torch.cuda.device`` context."""
+    import torch
+
+    if index < 0:
+        raise ValueError(
+            f"the {what} kernel needs its inputs on one CUDA device; kernels.ops.{what} takes CPU tensors"
+        )
+    current = torch._C._cuda_getDevice()  # a CUDA tensor exists, so CUDA is initialised
+    if index != current:
+        raise ValueError(f"the {what} kernel needs its inputs on the current CUDA device, cuda:{current}")
+    return torch._C._cuda_getCurrentRawStream(index)

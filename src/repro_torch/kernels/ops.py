@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce as _fedavg_reduce
+from repro_torch.kernels.fedavg_reduce import fedavg_reduce_leaves as _fedavg_reduce_leaves
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 from repro_torch.kernels.swa_attention import swa_attention as _swa_attention
 from repro_torch.kernels.vaoi_distance import vaoi_distance as _vaoi_distance
@@ -42,6 +43,16 @@ def fedavg_reduce(msgs, weights):
     return _fedavg_reduce(msgs, weights)
 
 
+def fedavg_reduce_leaves(groups):
+    """The same reduce read from the client leaves in place: one or two
+    (stacked (K_g, ...) leaves, (K_g,) weights) groups -> (P,), leaf j in
+    the next prod(shape_j) columns, the groups added in order."""
+    # the kernel's wrapper checks every tensor of a table whose first weights are on the card
+    if not (groups and groups[0][1].is_cuda) and _on_cpu(*(t for leaves, w in groups for t in (*leaves, w))):
+        return ref.fedavg_reduce_leaves_ref(groups)
+    return _fedavg_reduce_leaves(groups)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128):
     """Mamba2 SSD scan -> (y fp32, final state fp32).  On the CPU the plain
     version is the exact recurrence, which needs no ``chunk``."""
@@ -73,14 +84,21 @@ def route_launch_counts() -> Dict[str, Dict[str, int]]:
     return {name: {r: getattr(KERNELS[name], r) for r in routes} for name, routes in ROUTES.items()}
 
 
+def row_group_count() -> int:
+    """Row groups the fedavg_reduce kernel reduced: a compacted epoch's one
+    launch reduces two (the slab and the old-carrier stack)."""
+    return _fedavg_reduce.row_groups
+
+
 def reset_launch_counts() -> None:
     for name, fn in KERNELS.items():
         fn.launches = 0
         for r in ROUTES.get(name, ()):
             setattr(fn, r, 0)
+    _fedavg_reduce.row_groups = 0
 
 
 __all__ = [
-    "vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention", "launch_counts", "route_launch_counts",
-    "reset_launch_counts", "ref",
+    "vaoi_distance", "fedavg_reduce", "fedavg_reduce_leaves", "ssd_scan", "swa_attention", "launch_counts",
+    "route_launch_counts", "row_group_count", "reset_launch_counts", "ref",
 ]

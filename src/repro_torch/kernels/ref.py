@@ -3,7 +3,7 @@ truth each Hopper kernel is held against on the card."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -28,6 +28,24 @@ def vaoi_distance_ref(
 def fedavg_reduce_ref(msgs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted aggregation: msgs (K, P), weights (K,) -> (P,) in fp32."""
     return torch.einsum("kp,k->p", msgs.float(), weights.float())
+
+
+def fedavg_reduce_leaves_ref(groups: Sequence[Tuple[Sequence[torch.Tensor], torch.Tensor]]) -> torch.Tensor:
+    """The leaf-table reduce: groups of (stacked (K_g, *shape_j) leaves,
+    (K_g,) weights) -> (P,) fp32.  Per group, each leaf's weighted sum over
+    its K_g rows fills the leaf's columns; then the groups are added in
+    their order, as two reduces and an add."""
+    total = None
+    for leaves, w in groups:
+        part = torch.empty(sum(math.prod(leaf.shape[1:]) for leaf in leaves), dtype=torch.float32,
+                           device=w.device)
+        off = 0
+        for leaf in leaves:
+            cols = math.prod(leaf.shape[1:])
+            part[off : off + cols] = fedavg_reduce_ref(leaf.reshape(leaf.shape[0], cols), w)
+            off += cols
+        total = part if total is None else total + part
+    return total
 
 
 def swa_attention_ref(
