@@ -97,6 +97,25 @@ result line):
    at T=500; then, under cuDNN's deterministic algorithms, seed 1 of the
    batch against a solo run of seed 1 (integer fields and selections
    exactly, params within phase 5's tolerance).
+10. The client-sharded fleet (``core/fleet.py``) at phase 4's width and depth.
+   10a: ``run_fleet`` on one NCCL rank in this process: T vaoi_distance and
+   T fedavg_reduce launches over 2T row groups, its epoch time and clients
+   trained per second beside phase 4's, one profiled epoch with the
+   ``ehfl.fleet.*`` ranges (the collectives); under cuDNN's deterministic
+   algorithms held against a solo run (slot dynamics, ages, selections and
+   retry counters exactly; params, h within phase 5's tolerance).  10b:
+   four gloo ranks on this one card (NCCL refuses two ranks on one GPU),
+   25 clients a rank: the last 3 epochs held against the solo run on the
+   card epoch by epoch from shared state (``fleet.shard_carry`` of the solo
+   carry, the ranks' rows gathered back), deterministic cuDNN, some client
+   training in them; each rank's T-epoch ``run_fleet`` counted (T
+   vaoi_distance launches at (25, 10), T fedavg_reduce launches over 2T
+   row groups) and timed, one profiled epoch a rank, and the all-reduces
+   timed alone.  10c: the same four ranks at N=1024 (256 a rank) for T
+   epochs: epoch time, clients trained per second, each rank's peak memory.
+   Phase 3 also times vaoi_distance at a shard's (25, 10) beside its launch
+   floor, and its sweeps hold the shards' shapes ((25, 10), (50, 10),
+   (256, 10); leaf tables of a 10-row slab beside 25 and 256 old rows).
 8. Last: one JSON line listing every ported kernel, then the result line.
 
 TF32 is switched off for cuDNN convolutions and matmuls, so the GPU runs
@@ -298,22 +317,26 @@ EHFL_ITERS = 200
 # the main path's FedAvg rows: the slab (5 of 10 upload) and the old-carrier
 # stack (5 of 100 carry an old message)
 SLAB_ROWS, OLD_ROWS, SLAB_UP, OLD_UP = 10, 100, 5, 5
+# a fleet shard's clients in phase 10b: N=100 over FLEET_RANKS ranks
+FLEET_RANKS = 4
+FLEET_SHARD_ROWS = OLD_ROWS // FLEET_RANKS
 # The leaf table against its plain version, fp32 and bf16 alike: both read
 # bf16 exactly into fp32 and accumulate in fp32, so they part only by the
 # order of the sum (one dropped row of 110 would miss by about 0.01).
 LEAF_TOL = 1e-5
 
 
-def cnn_leaf_table(torch, g, dev):
+def cnn_leaf_table(torch, g, dev, rows=((SLAB_ROWS, SLAB_UP), (OLD_ROWS, OLD_UP))):
     """The main path's FedAvg table: the paper CNN's 18 leaves (sorted
     names), a slab group of SLAB_ROWS rows and an old-carrier group of
-    OLD_ROWS, fp32, with SLAB_UP and OLD_UP nonzero weights."""
+    OLD_ROWS, fp32, with SLAB_UP and OLD_UP nonzero weights; or the groups
+    of ``rows`` ((row count, nonzero weights) each)."""
     from repro_torch.configs import CONFIG
     from repro_torch.models.cnn import init_params
 
     shapes = {k: v.shape for k, v in init_params(CONFIG, torch.Generator().manual_seed(0), torch.device("cpu")).items()}
     groups = []
-    for k, up in ((SLAB_ROWS, SLAB_UP), (OLD_ROWS, OLD_UP)):
+    for k, up in rows:
         w = torch.zeros(k)
         w[torch.randperm(k, generator=g)[:up]] = 1.0
         groups.append(([torch.randn(k, *shapes[n], generator=g).to(dev) for n in sorted(shapes)], w.to(dev)))
@@ -458,6 +481,29 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
     log(json.dumps(row))
     results["vaoi_distance"] = [row]
 
+    # --- vaoi_distance at a fleet shard's (N_loc, F) = (25, 10): N=100 over 4 ranks (phase 10b) ---
+    n = FLEET_SHARD_ROWS
+    vs, hs, ages, qs = v[:n].contiguous(), h[:n].contiguous(), age[:n].contiguous(), q[:n].contiguous()
+    m_k, a_k = kern_vaoi(vs, hs, ages, qs, 0.5)
+    m_r, a_r = ref.vaoi_distance_ref(vs, hs, ages, qs, 0.5)
+    err = max((m_k - m_r).abs().max().item(), (a_k - a_r).abs().max().item())
+    if not err <= 1e-5:
+        raise AssertionError(f"vaoi_distance ({n}, {f}) disagrees with its plain version: {err}")
+    b_ms, b_by = bound(2 * n * f * 4 + 4 * n * 4, 3 * n * f + 4 * n)
+    kernel, floor = (lambda: kern_vaoi(vs, hs, ages, qs, 0.5)), (lambda: vaoi_floor(vs, hs, ages, qs, 0.5))
+    library = lambda: torch.linalg.vector_norm(vs - hs, dim=1)  # noqa: E731
+    timed = interleaved_ms({"ms": kernel, "launch_floor_ms": floor, "library_ms": library}, EHFL_ITERS)
+    shard = {
+        "kernel": "vaoi_distance", "role": "fleet shard (phase 10b)", "shape": [n, f], "dtype": "float32",
+        "max_abs_err": err, "tol": 1e-5, **timed, "plain_ms": time_ms(lambda: ref.vaoi_distance_ref(vs, hs, ages, qs, 0.5)),
+        "bound_ms": b_ms, "bound_by": b_by, "launch_floor_device_ms": device_ms(floor, EHFL_ITERS)["ms"],
+    }
+    add_device_ms(shard, kernel, library)
+    shard.update(bound_with_launch_floor_ms=max(b_ms, shard["launch_floor_device_ms"]),
+                 device_over_launch_floor=shard["device_ms"] / shard["launch_floor_device_ms"])
+    log(json.dumps(shard))
+    results["vaoi_distance_shard"] = shard
+
     # --- fedavg_reduce in the TPU kernel's signature: the slab (10, P) and the old-carrier stack (100, P) ---
     p = 845_738
     single = []
@@ -511,8 +557,9 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
     # --- ragged fp32/bf16 sweeps (tests/test_kernels.py's shapes and tolerances) ---
     n_checked = 0
     for dtype, tv, tf in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 0.2, 0.05)):
+        # (25, 10), (50, 10) and (256, 10): a fleet shard's rows at N=100 over 4 and 2 ranks, N=1024 over 4
         for n, f in ((10, 10), (100, 10), (100, 16), (100, 32), (100, 33), (128, 512), (257, 300), (33, 1025),
-                     (100, 130), (10, 700), (5, 1025)):
+                     (100, 130), (10, 700), (5, 1025), (25, 10), (50, 10), (256, 10)):
             v = torch.randn(n, f, generator=g).to(dtype).to(dev)
             h = torch.randn(n, f, generator=g).to(dtype).to(dev)
             age = torch.randint(0, 9, (n,), generator=g).float().to(dev)
@@ -538,6 +585,14 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
         torch.testing.assert_close(got[~nan], want[~nan], rtol=LEAF_TOL, atol=LEAF_TOL)
         nan_columns += nan.sum().item()
         n_checked += 1
+    # a fleet shard's table: its slab of min(k, N_loc) = 10 rows beside its
+    # old-carrier stack of N_loc rows (25: N=100 over 4 ranks; 256: N=1024 over 4)
+    for old_rows in (FLEET_SHARD_ROWS, 256):
+        groups = cnn_leaf_table(torch, g, dev, rows=((SLAB_ROWS, SLAB_UP), (old_rows, 2)))
+        torch.testing.assert_close(kern_leaves(groups), ref.fedavg_reduce_leaves_ref(groups), rtol=LEAF_TOL,
+                                   atol=LEAF_TOL)
+        n_checked += 1
+        del groups
     torch.cuda.synchronize()
     log(json.dumps({"phase": "kernel_sweep", "cases": n_checked, "leaf_table_nan_columns": nan_columns, "ok": True}))
     return results
@@ -1356,13 +1411,9 @@ def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
     }))
 
     # seed 1 of the batch against its solo run, bit-repeatable cuDNN
-    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
+    with deterministic_cudnn(torch):
         batch = sim.run_batch(cfg, backend, data, BATCH_SEEDS, device=dev)
         solo = sim.run_simulation(dataclasses.replace(cfg, seed=1), backend, data, device=dev)
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
     i = BATCH_SEEDS.index(1)
     exact_fields = EXACT + ("retries", "backoff")
     diff_metrics = [k for k in EXACT_METRICS + ("n_delivered", "n_failed", "n_dropped")
@@ -1377,6 +1428,315 @@ def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
     if diff_fields or diff_metrics or not (err <= PARAM_ATOL and f1_err <= F1_ATOL):
         raise AssertionError(f"seed 1 of run_batch differs from its solo run: {row}")
     return launches
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms inside the block: a run repeats bit
+    for bit, so two paths through the same arithmetic can be compared."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+# Phase 10: the client-sharded fleet (core/fleet.py).  10a: one NCCL rank in
+# this process; 10b and 10c: FLEET_RANKS gloo ranks on this one card (NCCL
+# refuses two ranks on one GPU; gloo all-reduces CUDA tensors through the
+# host), one spawn for both.  A collective that waits FLEET_TIMEOUT_S fails
+# its rank, and the spawn fails if it runs that long.  10b compares the last
+# FLEET_COMPARE_EPOCHS epochs of T: at p_bc = 0.1 a battery holds the
+# kappa = 20 units a training run needs only after about 7 epochs, so the
+# first epochs train nobody.  For the same reason 10c runs T epochs too
+# (at T = 3 no client of the N = 1024 fleet trained).
+FLEET_COMPARE_EPOCHS = 3
+FLEET_SCALE_N = 1024
+FLEET_TIMEOUT_S = 600.0
+FLEET_EXACT_METRICS = EXACT_METRICS + ("n_delivered", "n_failed", "n_dropped", "n_retried", "n_resent", "avg_age")
+FLEET_EXACT_FIELDS = EXACT + ("retries", "backoff")
+
+
+def fleet_vs_solo(torch, fleet_carry, fleet_m, solo_carry, solo_m, what) -> dict:
+    """A fleet's carry and metrics against a solo run's from the same state
+    (phase 5's rule): the slot dynamics, ages, selections and retry counters
+    exactly; params and h within PARAM_ATOL, avg_m within M_ATOL."""
+    row = {
+        "differing_exact_metrics": [k for k in FLEET_EXACT_METRICS if not torch.equal(fleet_m[k].cpu(), solo_m[k].cpu())],
+        "differing_exact_fields": [f for f in FLEET_EXACT_FIELDS
+                                   if not same_state(torch, getattr(fleet_carry, f), getattr(solo_carry, f))],
+        "max_abs_err": {"params": max_abs(fleet_carry.global_params, solo_carry.global_params),
+                        "h": max_abs(fleet_carry.h, solo_carry.h), "avg_m": max_abs(fleet_m["avg_m"], solo_m["avg_m"])},
+        "atol": {"params": PARAM_ATOL, "h": PARAM_ATOL, "avg_m": M_ATOL},
+    }
+    errs = row["max_abs_err"]
+    if (row["differing_exact_metrics"] or row["differing_exact_fields"]
+            or not (errs["params"] <= PARAM_ATOL and errs["h"] <= PARAM_ATOL and errs["avg_m"] <= M_ATOL)):
+        raise AssertionError(f"{what}: the fleet differs from the solo run: {row}")
+    return row
+
+
+def fleet_range_times(profile) -> dict:
+    """The ``ehfl.fleet.*`` ranges (the collectives) of a profiled epoch."""
+    return {k: {"host_ms": v["host_ms"], "device_ms": v["device_ms"], "calls": v["calls"]}
+            for k, v in profile["layers"].items() if k.startswith("ehfl.fleet.")}
+
+
+def phase_fleet_nccl(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev, smi, solo_steady_s):
+    """Phase 10a: ``run_fleet`` on one NCCL rank at phase 4's width and depth
+    (the solo path plus collectives over one rank): T vaoi_distance and T
+    fedavg_reduce launches over 2T row groups, its epoch time beside phase
+    4's, one profiled epoch; then, under cuDNN's deterministic algorithms,
+    against a solo run (``fleet_vs_solo``).  Returns the launch counts."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    T = cfg.epochs
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
+    with tempfile.TemporaryDirectory(prefix="fleet-") as tmp:
+        backend_name = "nccl" if dev.type == "cuda" else "gloo"  # gloo: a rehearsal on the CPU
+        dist.init_process_group(backend_name, init_method=f"file://{tmp}/store", world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=FLEET_TIMEOUT_S))
+        try:
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = fleet.run_fleet(cfg, backend, data, draws=TorchDraws(seed=cfg.seed), device=dev)
+            wall = time.perf_counter() - t0
+            launches, row_groups = ops.launch_counts(), ops.row_group_count()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if launches != want or row_groups != 2 * T:
+                raise AssertionError(f"10a: kernel launches {launches} != {want} or fedavg_reduce row groups "
+                                     f"{row_groups} != {2 * T}")
+            dd = sim.to_device_data(data, dev)
+            epoch_fn = fleet.make_fleet_epoch_fn(cfg, backend, dd)
+            draws = TorchDraws(seed=cfg.seed)
+            profile = profile_run(torch, lambda: epoch_fn(out["carry"], T, draws.epoch(T, cfg, dd["images"].shape[1], dev)),
+                                  dev, "ehfl.", no_concat=("ehfl.fedavg",))
+            del dd, epoch_fn
+            with deterministic_cudnn(torch):
+                f = fleet.run_fleet(cfg, backend, data, draws=TorchDraws(seed=cfg.seed), device=dev)
+                s = sim.run_simulation(cfg, backend, data, draws=TorchDraws(seed=cfg.seed), device=dev)
+            cmp = fleet_vs_solo(torch, f["carry"], f["metrics"], s["carry"], s["metrics"], "10a")
+        finally:
+            dist.destroy_process_group()
+    log(json.dumps({
+        "phase": "fleet_nccl_one_rank", "backend": backend_name, "num_shards": out["num_shards"], "epochs": T,
+        "wall_s": wall, "launches": launches, "fedavg_row_groups": row_groups, **run_summary(torch, out["metrics"], T, smi),
+        "phase4_steady_epoch_s_median": solo_steady_s, "peak_gpu_mem_gb": peak_gb,
+        "vs_solo_cudnn_deterministic": {"epochs": T, **cmp}, "fleet_ranges": fleet_range_times(profile),
+        "profile_epoch": profile,
+    }))
+    return launches
+
+
+def save_pools(data, prefix: Path) -> None:
+    """Client pools and test set as .npy files, which the ranks map."""
+    import numpy as np
+
+    for k, v in data.items():
+        np.save(f"{prefix}_{k}.npy", v.cpu().numpy())
+
+
+def load_pools(prefix: Path) -> dict:
+    """The saved pools, memory-mapped: ``run_fleet`` reads only a rank's rows."""
+    import numpy as np
+
+    return {k: np.load(f"{prefix}_{k}.npy", mmap_mode="r") for k in ("images", "labels", "test_images", "test_labels")}
+
+
+def fleet_rank(rank: int, workdir: str, cfg, device: str) -> None:
+    """Phases 10b and 10c on one gloo rank of FLEET_RANKS, all on this card:
+    (b) FLEET_COMPARE_EPOCHS epochs from the solo run's state (this rank's
+    shard of it), under cuDNN's deterministic algorithms; a T-epoch
+    ``run_fleet``, counted and timed; one profiled epoch; (c) ``run_fleet``
+    at N=FLEET_SCALE_N for T epochs, with its peak memory.
+    Writes ``rank<r>.pt`` for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import CONFIG
+    from repro_torch.core import fleet
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.fl import cnn_backend
+    from repro_torch.kernels import ops
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cpu, work = torch.device(device), torch.device("cpu"), Path(workdir)
+    backend, draws = cnn_backend(CONFIG), TorchDraws(seed=cfg.seed)
+    T = cfg.epochs
+    out = {"rank": rank, "compare": []}
+
+    # 10b: epoch by epoch from the solo run's state
+    pools = load_pools(work / "b")
+    n_loc = cfg.num_clients // dist.get_world_size()
+    rows = slice(rank * n_loc, (rank + 1) * n_loc)
+    local = sim.to_device_data({k: v[rows] if k in ("images", "labels") else v for k, v in pools.items()}, dev)
+    epoch_fn = fleet.make_fleet_epoch_fn(cfg, backend, local)
+    n_samples = local["images"].shape[1]
+    with deterministic_cudnn(torch):
+        for t in range(T - FLEET_COMPARE_EPOCHS, T):
+            carry = to_device(torch.load(work / f"b_carry{t}_rank{rank}.pt", weights_only=False), dev)
+            ops.reset_launch_counts()
+            nxt, m = epoch_fn(carry, t, draws.epoch(t, cfg, n_samples, dev))
+            torch.cuda.synchronize()
+            out["compare"].append({"carry": to_device(nxt, cpu), "metrics": {k: v.cpu() for k, v in m.items()},
+                                   "launches": ops.launch_counts(), "row_groups": ops.row_group_count()})
+    # 10b: a T-epoch run, counted and timed, then one profiled epoch
+    ops.reset_launch_counts()
+    run = fleet.run_fleet(cfg, backend, pools, draws=draws, device=dev)
+    m = run["metrics"]
+    out["run_b"] = {
+        "launches": ops.launch_counts(), "row_groups": ops.row_group_count(), "num_shards": run["num_shards"],
+        "epoch_s": m["epoch_s"].tolist(), "n_started": m["n_started"].sum().item(), "f1": m["f1"][-1].item(),
+        "finite": all(torch.isfinite(v).all().item() for v in run["global_params"].values()),
+    }
+    out["profile_b"] = profile_run(torch, lambda: epoch_fn(run["carry"], T, draws.epoch(T, cfg, n_samples, dev)), dev,
+                                   "ehfl.", no_concat=("ehfl.fedavg",))
+    # the epoch's all-reduces alone, each started together on every rank (a
+    # barrier first), so that no rank's wait for a slower one counts: the
+    # (P,) FedAvg partial and the (10 + N,) float64 metrics vector
+    partial = torch.zeros(sum(v.numel() for v in run["global_params"].values()), device=dev)
+    metrics_vec = torch.zeros(len(m) + cfg.num_clients, dtype=torch.float64, device=dev)
+    out["allreduce_ms"] = {}
+    for name, x in (("fedavg_partial", partial), ("metrics_vector", metrics_vec)):
+        times = []
+        for _ in range(12):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["allreduce_ms"][name] = {"numel": x.numel(), "dtype": str(x.dtype), "median_ms": statistics.median(times[2:])}
+    del run, local, epoch_fn, carry, nxt, partial
+    torch.cuda.empty_cache()
+
+    # 10c: fleet scale
+    cfg_c = dataclasses.replace(cfg, num_clients=FLEET_SCALE_N)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = fleet.run_fleet(cfg_c, backend, load_pools(work / "c"), draws=draws, device=dev)
+    wall = time.perf_counter() - t0
+    m = run["metrics"]
+    out["run_c"] = {
+        "launches": ops.launch_counts(), "row_groups": ops.row_group_count(), "num_shards": run["num_shards"],
+        "wall_s": wall, "epoch_s": m["epoch_s"].tolist(), "n_started": m["n_started"].tolist(),
+        "n_uploaded": m["n_uploaded"].tolist(), "energy": m["energy"].tolist(), "f1": m["f1"][-1].item(),
+        "finite": all(torch.isfinite(v).all().item() for v in run["global_params"].values()),
+        "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "msg_params_gb": sum(
+            v.numel() * v.element_size() for v in run["carry"].msg_params.values()) / 1e9,
+    }
+    torch.save(out, work / f"rank{rank}.pt")
+
+
+def phase_fleet_gloo(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev, smi, make_federated_dataset):
+    """Phases 10b and 10c: FLEET_RANKS gloo ranks on this card
+    (``fleet_rank``).  10b holds the fleet to the solo run on the card epoch
+    by epoch from shared state (``fleet_vs_solo``) and counts each rank's T
+    vaoi_distance launches at its (N/4, 10) and T fedavg_reduce launches over
+    2T row groups; 10c runs N=FLEET_SCALE_N.  Returns each rank's launch
+    counts of 10b's and 10c's runs."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_fleet
+
+    cpu, R, E, T = torch.device("cpu"), FLEET_RANKS, FLEET_COMPARE_EPOCHS, cfg.epochs
+    with tempfile.TemporaryDirectory(prefix="fleet-") as tmp:
+        work = Path(tmp)
+        save_pools(data, work / "b")
+        # the solo run on the card, epoch by epoch, with each rank's shard of each epoch's input state
+        dd = sim.to_device_data(data, dev)
+        epoch_fn, draws = sim.make_epoch_fn(cfg, backend, dd), TorchDraws(seed=cfg.seed)
+        carry, solo = sim.init_carry(cfg, backend, dev, draws=draws), []
+        with deterministic_cudnn(torch):
+            for t in range(T):
+                if t >= T - E:
+                    for r in range(R):
+                        torch.save(to_device(fleet.shard_carry(cfg, carry, r, R), cpu), work / f"b_carry{t}_rank{r}.pt")
+                carry, m = epoch_fn(carry, t, draws.epoch(t, cfg, dd["images"].shape[1], dev))
+                if t >= T - E:
+                    solo.append((to_device(carry, cpu), {k: v.cpu() for k, v in m.items()}))
+        del carry, dd, epoch_fn
+        t0 = time.perf_counter()
+        scale = make_federated_dataset(0, num_clients=FLEET_SCALE_N, samples_per_client=300, test_size=500, device="cpu")
+        save_pools(scale, work / "c")
+        del scale
+        pools_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn_fleet(fleet_rank, R, "gloo", args=(tmp, cfg, str(dev)), timeout_s=FLEET_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(R)]
+
+    # 10b: the fleet against the solo run, epoch by epoch
+    per_epoch = []
+    for i, (solo_carry, solo_m) in enumerate(solo):
+        t, outs = T - E + i, [rk["compare"][i] for rk in ranks]
+        for o in outs[1:]:
+            if not all(torch.equal(o["metrics"][k], outs[0]["metrics"][k]) for k in FLEET_EXACT_METRICS):
+                raise AssertionError(f"10b epoch {t}: the ranks' fleet-wide metrics differ")
+        counted = [(o["launches"]["vaoi_distance"], o["launches"]["fedavg_reduce"], o["row_groups"]) for o in outs]
+        if counted != [(1, 1, 2)] * R:
+            raise AssertionError(f"10b epoch {t}: per-rank launches (vaoi, fedavg, row groups) {counted} != (1, 1, 2)")
+        cmp = fleet_vs_solo(torch, fleet.gather_carry(cfg, [o["carry"] for o in outs]), outs[0]["metrics"],
+                            solo_carry, solo_m, f"10b epoch {t}")
+        per_epoch.append({"epoch": t, "n_started": solo_m["n_started"].item(),
+                          "n_delivered": solo_m["n_delivered"].item(), **cmp})
+    if not sum(e["n_started"] for e in per_epoch) > 0:
+        raise AssertionError(f"10b: no client trained in the compared epochs {[e['epoch'] for e in per_epoch]}")
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
+    runs_b = [rk["run_b"] for rk in ranks]
+    for r, rb in enumerate(runs_b):
+        if rb["launches"] != want or rb["row_groups"] != 2 * T or rb["num_shards"] != R or not rb["finite"]:
+            raise AssertionError(f"10b rank {r}: launches {rb['launches']} != {want}, row groups {rb['row_groups']} "
+                                 f"!= {2 * T}, shards {rb['num_shards']} or non-finite params")
+    steady = [statistics.median(rb["epoch_s"][1:]) for rb in runs_b]
+    log(json.dumps({
+        "phase": "fleet_gloo_4ranks_one_card", "backend": "gloo (CUDA tensors, one card)", "ranks": R,
+        "clients_per_rank": cfg.num_clients // R, "epochs": T, "spawn_s": spawn_s,
+        "vs_solo_epoch_by_epoch": {"epochs": E, "cudnn_deterministic": True, "per_epoch": per_epoch},
+        "per_rank": [{"rank": r, "launches": rb["launches"], "fedavg_row_groups": rb["row_groups"],
+                      "steady_epoch_s_median": steady[r], "first_epoch_s": rb["epoch_s"][0],
+                      "fleet_ranges": fleet_range_times(ranks[r]["profile_b"]),
+                      "allreduce_alone_ms": ranks[r]["allreduce_ms"],
+                      "profile_wall_ms": ranks[r]["profile_b"]["wall_ms"],
+                      "device_idle_share": ranks[r]["profile_b"]["device_idle_share"],
+                      "port_kernels": ranks[r]["profile_b"]["port_kernels"]} for r, rb in enumerate(runs_b)],
+        "started_clients_per_s": runs_b[0]["n_started"] / sum(runs_b[0]["epoch_s"]), "f1": runs_b[0]["f1"],
+        "power_limit": smi,
+    }))
+    log(json.dumps({"phase": "fleet_gloo_profile_rank0", "profile_epoch": ranks[0]["profile_b"]}))
+
+    # 10c: fleet scale
+    Tc = T
+    want_c = {"vaoi_distance": Tc, "fedavg_reduce": Tc, "ssd_scan": 0, "swa_attention": 0}
+    runs_c = [rk["run_c"] for rk in ranks]
+    for r, rc in enumerate(runs_c):
+        if rc["launches"] != want_c or rc["row_groups"] != 2 * Tc or rc["num_shards"] != R or not rc["finite"]:
+            raise AssertionError(f"10c rank {r}: launches {rc['launches']} != {want_c}, row groups {rc['row_groups']}, "
+                                 f"shards {rc['num_shards']} or non-finite params")
+    if not 0.0 <= runs_c[0]["f1"] <= 1.0:
+        raise AssertionError(f"10c: f1 out of range: {runs_c[0]['f1']}")
+    log(json.dumps({
+        "phase": "fleet_scale", "backend": "gloo (CUDA tensors, one card), not NCCL across cards", "ranks": R,
+        "num_clients": FLEET_SCALE_N, "clients_per_rank": FLEET_SCALE_N // R, "epochs": Tc, "pools_setup_s": pools_s,
+        "per_rank": [{"rank": r, "wall_s": rc["wall_s"], "epoch_s": rc["epoch_s"], "peak_gpu_mem_gb": rc["peak_gpu_mem_gb"],
+                      "msg_params_gb": rc["msg_params_gb"], "launches": rc["launches"], "fedavg_row_groups": rc["row_groups"]}
+                     for r, rc in enumerate(runs_c)],
+        "steady_epoch_s_median": statistics.median(runs_c[0]["epoch_s"][1:]),
+        "per_epoch_n_started": runs_c[0]["n_started"],
+        "started_clients_per_s": sum(runs_c[0]["n_started"]) / sum(runs_c[0]["epoch_s"]),
+        "n_started": runs_c[0]["n_started"], "n_uploaded": runs_c[0]["n_uploaded"], "energy": runs_c[0]["energy"],
+        "f1": runs_c[0]["f1"], "power_limit": smi,
+    }))
+    return {"10b_per_rank": [rb["launches"] for rb in runs_b], "10c_per_rank": [rc["launches"] for rc in runs_c]}
 
 
 def sgd_sensitivity(torch, sim, cfg, backend, data, draws, dev) -> float:
@@ -1467,6 +1827,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import CONFIG
     from repro_torch.core.draws import TorchDraws
+    from repro_torch.core import fleet
     from repro_torch.core import simulator as sim
     from repro_torch.data import make_federated_dataset
     from repro_torch.fl import cnn_backend
@@ -1570,6 +1931,14 @@ def main() -> int:
     # --- phase 9b: run_batch at paper width ---
     batch_launches = phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, gpu_s)
 
+    # --- phase 10: the client-sharded fleet ---
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet_launches = {"10a": phase_fleet_nccl(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev, smi, steady)}
+    fleet_launches.update(phase_fleet_gloo(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev, smi,
+                                           make_federated_dataset))
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
     # --- phase 8: every ported kernel, then the result ---
     def entry(name, source, replaces, rows, count):
         out = {
@@ -1605,13 +1974,18 @@ def main() -> int:
         entry("fedavg_reduce", "src/repro_torch/csrc/fedavg_reduce.cu",
               "src/repro/kernels/fedavg_reduce.py:36", kresults["fedavg_reduce"], launches),
     ]
-    for e in ehfl:  # the launches of phase 9a's runs and 9b's batch
+    for e in ehfl:  # the launches of phase 9a's runs, 9b's batch and phase 10's fleets (per rank)
         e.update(launches_scenarios=[c[e["name"]] for c in scenario_launches],
-                 launches_run_batch=batch_launches[e["name"]])
+                 launches_run_batch=batch_launches[e["name"]],
+                 launches_fleet={k: [c[e["name"]] for c in v] if isinstance(v, list) else v[e["name"]]
+                                 for k, v in fleet_launches.items()})
     vaoi_row, leaf_row = kresults["vaoi_distance"][0], kresults["fedavg_reduce"][0]
     ehfl[0].update(design=vaoi_row["design"], **{k: vaoi_row[k] for k in (
         "launch_floor_ms", "launch_floor_device_ms", "bound_with_launch_floor_ms", "device_over_launch_floor",
         "host_clock_ms")})
+    ehfl[0]["fleet_shard"] = {k: kresults["vaoi_distance_shard"][k] for k in (
+        "shape", "max_abs_err", "ms", "device_ms", "launch_floor_ms", "launch_floor_device_ms", "bound_ms",
+        "bound_with_launch_floor_ms", "plain_ms", "library_ms", "library_device_ms")}
     ehfl[1].update(row_groups=row_groups, role=leaf_row["role"], library=leaf_row["library"],
                    plain_device_ms=leaf_row["plain_device_ms"], device_bound_share=leaf_row["device_bound_share"],
                    single_matrix=leaf_row["single_matrix"])

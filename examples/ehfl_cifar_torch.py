@@ -10,17 +10,31 @@ Pass --paper-scale for the full N=100 / T=500 protocol.
   PYTHONPATH=src python examples/ehfl_cifar_torch.py --device cpu --rounds 4 \\
       --clients 6 --samples 20 --num-seeds 2 --channel erasure --k 2
 
+``--fleet`` runs the client-sharded fleet (``repro_torch.core.fleet``), one
+process per shard.  Started plainly it starts them itself: one per visible
+card over NCCL (``--shards`` picks fewer), or ``--shards`` processes over
+gloo with ``--device cpu``.  Under ``torchrun`` each process it starts is
+one shard (NCCL on its card, gloo with ``--device cpu``):
+
+  PYTHONPATH=src python examples/ehfl_cifar_torch.py --fleet --rounds 20
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 examples/ehfl_cifar_torch.py \\
+      --fleet --device cpu --rounds 4 --clients 6 --samples 20 --k 2
+
 It writes ``<tag>_model.npz`` (the global model in the JAX package's
 layout, readable by ``repro.checkpoint``) and ``<tag>_metrics.json`` with
-the JAX example's keys.
+the JAX example's keys (a fleet: rank 0 writes them).
 """
 import argparse
+import datetime
 import json
+import os
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.convert import params_to_reference
 from repro_torch.checkpoint.npz import save_pytree
@@ -34,9 +48,14 @@ from repro_torch.core import (
     run_batch,
     run_simulation,
 )
+from repro_torch.core.fleet import run_fleet
 from repro_torch.data import make_federated_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl import cnn_backend
+from repro_torch.launch.mesh import fleet_shards, spawn_fleet
+
+# how long a rank of the fleet waits on a collective before it fails
+FLEET_TIMEOUT_S = 1800.0
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -68,7 +87,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--num-seeds", type=int, default=1,
                     help=">1: a multi-seed sweep through run_batch, seed means reported")
     ap.add_argument("--fleet", action="store_true",
-                    help="the client-sharded fleet simulator: not ported yet")
+                    help="the client-sharded fleet simulator (repro_torch.core.fleet), one process per "
+                         "shard: under torchrun each process is a shard, else it starts --shards of them")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="--fleet started plainly: the shard count (default: every visible card; 1 with "
+                         "--device cpu), clamped to a divisor of --clients")
     ap.add_argument("--paper-scale", action="store_true",
                     help="full paper protocol: N=100, T=500, 300 samples, 32px CNN")
     ap.add_argument("--out", default="experiments/ehfl_cifar")
@@ -76,24 +99,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device (default: the GPU; without CUDA this fails, it does not "
                          "fall back to the CPU)")
     args = ap.parse_args(argv)
-    if args.fleet:
-        ap.error("--fleet: the client-sharded fleet is not ported yet (ROADMAP.md queue 1 #8)")
+    if args.fleet and args.num_seeds > 1:
+        ap.error("--fleet runs a single seed; drop --num-seeds "
+                 "(seed sweeps go through run_batch, fleets through run_fleet)")
+    if args.paper_scale:
+        args.clients, args.rounds, args.samples, args.k = 100, 500, 300, 10
     return args
 
 
-def main(argv=None) -> None:
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+def setup(args, device):
+    """The CNN, the data (on ``device``) and the configuration the flags name."""
     if args.paper_scale:
-        args.clients, args.rounds, args.samples, args.k = 100, 500, 300, 10
         cnn, image = PAPER_CNN, 32
     else:
         cnn = CNNConfig(name="example", image_size=16, conv_channels=(16, 16, 32, 32, 64, 64), fc_dims=(128, 64))
         image = 16
-
-    print(f"EHFL example (torch, {device}): policy={args.policy} N={args.clients} T={args.rounds} "
-          f"alpha={args.alpha} p_bc={args.p_bc} harvest={args.harvest} "
-          f"stream={args.stream} cnn={cnn.conv_channels}")
     data = make_federated_dataset(
         args.seed, num_clients=args.clients, samples_per_client=args.samples, alpha=args.alpha,
         test_size=500, image_size=image, device=device,
@@ -111,6 +131,44 @@ def main(argv=None) -> None:
             (k, float(v)) for k, v in (kv.split("=", 1) for kv in args.channel_params.split(",") if kv)
         ),
     )
+    return cnn, data, cfg
+
+
+def fleet_rank(rank: int, args) -> None:
+    """One shard of the fleet, inside its process group: the run; rank 0
+    reports and writes the files."""
+    device = torch.device(args.device) if args.device else torch.device("cuda", torch.cuda.current_device())
+    # the client pools stay on the host: run_fleet moves only this rank's rows to the device
+    cnn, data, cfg = setup(args, torch.device("cpu"))
+    if rank == 0:
+        header(args, cnn, f"{device}, a fleet of {dist.get_world_size()} ranks over {dist.get_backend()}")
+    t0 = time.time()
+    out = run_fleet(cfg, cnn_backend(cnn), data, device=device)
+    if rank == 0:
+        report(args, out["metrics"], out["global_params"], time.time() - t0)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if args.fleet and "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # started by torchrun
+        if args.device is None:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        device = resolve_device(args.device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                timeout=datetime.timedelta(seconds=FLEET_TIMEOUT_S))
+        try:
+            fleet_rank(dist.get_rank(), args)
+        finally:
+            dist.destroy_process_group()
+        return
+    device = resolve_device(args.device)
+    if args.fleet:
+        shards = fleet_shards(args.clients, args.shards or (None if device.type == "cuda" else 1))
+        spawn_fleet(fleet_rank, shards, "nccl" if device.type == "cuda" else "gloo", args=(args,),
+                    timeout_s=FLEET_TIMEOUT_S)
+        return
+    cnn, data, cfg = setup(args, device)
+    header(args, cnn, str(device))
     backend = cnn_backend(cnn)
     t0 = time.time()
     if args.num_seeds > 1:
@@ -125,6 +183,16 @@ def main(argv=None) -> None:
         out = run_simulation(cfg, backend, data, device=device)
         wall = time.time() - t0
         m, params = out["metrics"], out["global_params"]
+    report(args, m, params, wall)
+
+
+def header(args, cnn, where: str) -> None:
+    print(f"EHFL example (torch, {where}): policy={args.policy} N={args.clients} T={args.rounds} "
+          f"alpha={args.alpha} p_bc={args.p_bc} harvest={args.harvest} "
+          f"stream={args.stream} cnn={cnn.conv_channels}")
+
+
+def report(args, m, params, wall) -> None:
     m = {k: v.cpu().numpy() for k, v in m.items()}
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)

@@ -29,6 +29,8 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.profiler import record_function
 
 SCENARIOS = ("ideal", "erasure", "aloha", "fading")
 
@@ -87,16 +89,22 @@ def erasure(p_loss: float = 0.2, concentration: float = 0.0) -> ChannelProcess:
     return ChannelProcess("erasure", True, init, step, init_draw, _uniforms)
 
 
-def aloha(num_channels: float = 2) -> ChannelProcess:
+def aloha(num_channels: float = 2, group: Any = None) -> ChannelProcess:
     """M-channel slotted ALOHA on the injected (N,) channel choices:
     exactly-one occupancy delivers, collisions destroy every colliding
-    upload.  The reference's key is its only state; the port's is None."""
+    upload.  The reference's key is its only state; the port's is None.
+    With a ``torch.distributed`` ``group`` (the fleet's shards), each
+    shard's contention counts are all-reduced over the group before the
+    exactly-one test: a collision can span shards."""
     M = max(1, int(num_channels))
 
     def step(state, attempting: torch.Tensor, choice):
         choice = _need(choice, "aloha")
         counts = torch.zeros(M, dtype=torch.int32, device=attempting.device)
         counts.index_add_(0, choice, attempting.to(torch.int32))
+        if group is not None:
+            with record_function("ehfl.fleet.channel"):
+                dist.all_reduce(counts, group=group)
         return attempting & (counts[choice] == 1), None
 
     def epoch_draw(g: torch.Generator, n: int) -> torch.Tensor:
@@ -137,3 +145,21 @@ def make_channel(name: str, **params: float) -> ChannelProcess:
     if name not in _FACTORIES:
         raise ValueError(f"unknown channel scenario {name!r}; known: {SCENARIOS}")
     return _FACTORIES[name](**params)
+
+
+def make_sharded_channel(name: str, group: Any, **params: float) -> ChannelProcess:
+    """The channel of a fleet shard: ``init``/``step`` on the shard's rows
+    and its window of the global draws (``core.draws.shard_draws``).  Only
+    ALOHA couples clients, so only its form differs from
+    :func:`make_channel`'s: its contention counts are all-reduced over
+    ``group``."""
+    if name == "aloha":
+        return aloha(group=group, **params)
+    return make_channel(name, **params)
+
+
+def state_sharding_tree(name: str) -> bool | None:
+    """Whether the channel's carried state is per client (erasure's rates,
+    fading's link phases: a fleet shard holds its rows); None where it
+    carries none."""
+    return {"ideal": None, "erasure": True, "aloha": None, "fading": True}[name]

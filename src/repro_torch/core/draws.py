@@ -50,6 +50,33 @@ class InitDraws(NamedTuple):
     channel: Any = None
 
 
+def _window(x: Any, axis: int, off: int, n: int) -> Any:
+    """Rows ``[off, off + n)`` of ``x`` (a tensor or numpy array) along ``axis``."""
+    if x is None:
+        return None
+    axis %= x.ndim
+    return x[(slice(None),) * axis + (slice(off, off + n),)]
+
+
+def shard_draws(draws: EpochDraws | InitDraws, off: int, n: int, stream_axis: int = 0) -> EpochDraws | InitDraws:
+    """A fleet shard's window: clients ``[off, off + n)`` of the global
+    draws, along each field's client axis (see :class:`EpochDraws`; every
+    field of :class:`InitDraws` has it first).  ``stream_axis`` is the
+    stream's (``DataStream.draw_axis``: 1 for ``arrival``'s (2, N)).
+    Every rank draws the whole epoch from the same source and keeps its
+    rows, so a sharded run consumes the solo run's draws bit for bit (the
+    reference's global-draw-and-slice)."""
+    if isinstance(draws, InitDraws):
+        return InitDraws(*(_window(x, 0, off, n) for x in draws))
+    return EpochDraws(
+        noise=_window(draws.noise, 0, off, n),
+        harvest=_window(draws.harvest, -1, off, n),
+        perms=_window(draws.perms, 0, off, n),
+        stream=_window(draws.stream, stream_axis, off, n),
+        channel=_window(draws.channel, 0, off, n),
+    )
+
+
 def sgd_batch_size(kappa: int, n_samples: int) -> int:
     """Local minibatch size bs = n // kappa (at least 1)."""
     return max(1, n_samples // kappa)

@@ -175,6 +175,15 @@ def hetero(p_bc: float, concentration: float = 2.0) -> HarvestProcess:
 _FACTORIES: dict = {"bernoulli": bernoulli, "markov": markov, "diurnal": diurnal, "hetero": hetero}
 
 
+def state_sharding_tree(name: str) -> bool | None:
+    """Whether the process's carried state is per client (markov's phases,
+    hetero's rates: a fleet shard holds its rows) or whole (diurnal's
+    clock); None where it carries none.  With the draws injected and
+    sliced (``core.draws.shard_draws``), the process's own ``init``/``step``
+    on a shard's rows is its sharded form."""
+    return {"bernoulli": None, "markov": True, "diurnal": False, "hetero": True}[name]
+
+
 def make_process(name: str, p_bc: float, **params: float) -> HarvestProcess:
     """Build a named scenario; ``p_bc`` is the target mean rate for all of them."""
     if name not in _FACTORIES:

@@ -15,9 +15,10 @@ Policies:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import vaoi as vaoi_lib
 from repro_torch.core.energy import SlotState
@@ -72,6 +73,26 @@ def epoch_selection(
     # FedBacys variants: group g participates in epoch t iff g == t mod G
     G = spec.cyclic_groups
     return torch.arange(n, device=age.device) % G == int(epoch) % G
+
+
+def epoch_selection_sharded(
+    spec: PolicySpec, age: torch.Tensor, epoch: int, k: int, noise: torch.Tensor, *, group: Any
+) -> torch.Tensor:
+    """:func:`epoch_selection` over a client-sharded fleet: ``age`` and
+    ``noise`` are this shard's rows (of the global vectors, in rank order
+    over ``group``), and so is the returned mask, which equals the solo
+    selection's rows bit for bit."""
+    n_loc = age.shape[0]
+    if spec.name == "vaoi":
+        return vaoi_lib.select_topk_sharded(age, k, noise, group=group)
+    if spec.name == "vaoi_soft":
+        return vaoi_lib.select_gumbel_sharded(age, k, noise, group=group)
+    if spec.name == "fedavg":
+        return torch.ones(n_loc, dtype=torch.bool, device=age.device)
+    # FedBacys: the cyclic group comes from the GLOBAL client index
+    G = spec.cyclic_groups
+    off = dist.get_rank(group) * n_loc
+    return (off + torch.arange(n_loc, device=age.device)) % G == int(epoch) % G
 
 
 def make_want_fn(

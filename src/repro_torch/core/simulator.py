@@ -11,8 +11,9 @@ On CUDA tensors those are the Hopper kernels; on CPU tensors their plain
 versions (``kernels.ops``).  Random draws come from a ``core.draws`` source.
 The scenario axes (``core.harvest``, ``data.stream``, ``core.channel``)
 and the retry machine for lost uploads run as in the reference;
-:func:`run_batch` is the seed axis.  The fleet is not ported yet (ROADMAP.md
-queue 1 #8).
+:func:`run_batch` is the seed axis.  ``core.fleet.run_fleet`` runs the same
+:func:`epoch_body` with the client axis split over a ``torch.distributed``
+group: only the :class:`EpochOps` points differ from the solo path.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from repro_torch.core import channel as channel_lib
 from repro_torch.core import energy as energy_lib
 from repro_torch.core import harvest as harvest_lib
 from repro_torch.core import policies as policy_lib
-from repro_torch.core.draws import DrawSource, EpochDraws, TorchDraws, sgd_batch_size
+from repro_torch.core.draws import DrawSource, EpochDraws, TorchDraws, sgd_batch_size, shard_draws
 from repro_torch.data import stream as stream_lib
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -173,30 +174,40 @@ def _keep_if_empty(mean: Params, cnt: torch.Tensor, fallback: Params) -> Params:
     return {k: torch.where(keep, mean[k], fallback[k]) for k in mean}
 
 
-def _masked_mean(stacked: Params, mask: torch.Tensor, fallback: Params) -> Params:
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _masked_mean(
+    stacked: Params, mask: torch.Tensor, fallback: Params, reduce_sum: Callable = _identity
+) -> Params:
     """FedAvg over the masked clients through one ``fedavg_reduce`` launch
     over the leaves with normalized mask weights; ``fallback`` when nobody
-    uploaded."""
+    uploaded.  ``reduce_sum`` folds a shard's partial count and (P,) sum
+    into fleet totals (the fleet's all-reduce; default: this is the whole
+    client axis); the count is folded before the weights are formed."""
     w = mask.float()
-    cnt = w.sum()
+    cnt = reduce_sum(w.sum())
     leaves, aux = client_leaves(stacked)
-    mean = unflatten_clients(kops.fedavg_reduce_leaves([(leaves, w / cnt.clamp(min=1.0))]), aux)
+    mean = unflatten_clients(reduce_sum(kops.fedavg_reduce_leaves([(leaves, w / cnt.clamp(min=1.0))])), aux)
     return _keep_if_empty(mean, cnt, fallback)
 
 
 def _compact_mean(
-    slab: Params, slab_mask: torch.Tensor, old: Params, old_mask: torch.Tensor, fallback: Params
+    slab: Params, slab_mask: torch.Tensor, old: Params, old_mask: torch.Tensor, fallback: Params,
+    reduce_sum: Callable = _identity,
 ) -> Params:
     """FedAvg for the compacted path: this epoch's fresh uploads live in the
     (cap, ...) training slab (``slab_mask``), while carriers of an OLD
     message upload it from the N-wide ``old`` dict (``old_mask``).  One
     ``fedavg_reduce`` launch reduces both groups, read in place, and adds
-    them (slab + old); they share one count."""
+    them (slab + old); they share one count.  ``reduce_sum`` as in
+    :func:`_masked_mean`: a shard's (slab + old) partial is folded whole."""
     ws, wo = slab_mask.float(), old_mask.float()
-    cnt = ws.sum() + wo.sum()
+    cnt = reduce_sum(ws.sum() + wo.sum())
     slab_leaves, aux = client_leaves(slab)
     old_leaves, _ = client_leaves(old)
-    tot = kops.fedavg_reduce_leaves([(slab_leaves, ws), (old_leaves, wo)])
+    tot = reduce_sum(kops.fedavg_reduce_leaves([(slab_leaves, ws), (old_leaves, wo)]))
     return _keep_if_empty(unflatten_clients(tot / cnt.clamp(min=1.0), aux), cnt, fallback)
 
 
@@ -234,21 +245,24 @@ def init_carry(
     params: Params | None = None,
     seed: int | None = None,
     draws: DrawSource | None = None,
+    rows: Tuple[int, int] | None = None,
 ) -> EpochCarry:
     """Initial :class:`EpochCarry`.  ``params`` (e.g. the reference's init,
     through ``checkpoint.convert``) replaces the random init drawn from
     ``seed`` (default ``cfg.seed``).  The scenarios' carried state is built
     from ``draws.init`` (default ``TorchDraws(seed)``), harvest, then
-    stream, then channel, as the reference splits its keys."""
+    stream, then channel, as the reference splits its keys.  ``rows =
+    (off, n)`` builds only clients ``[off, off + n)`` (a fleet shard, from
+    its window of the global draws); default all N."""
     device = resolve_device(device)
     seed = cfg.seed if seed is None else seed
-    n = cfg.num_clients
+    off, n = rows or (0, cfg.num_clients)
     if params is None:
         params = backend.init(torch.Generator().manual_seed(seed), device)
     else:
         params = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
     processes = (cfg.harvest_process(), cfg.data_stream(backend.num_classes), cfg.channel_process())
-    init_draws = (draws or TorchDraws(seed)).init(cfg, backend.num_classes)
+    init_draws = shard_draws((draws or TorchDraws(seed)).init(cfg, backend.num_classes), off, n)
     state = [
         _tree_map(lambda x: x.to(device), p.init(None if x is None else torch.as_tensor(x).to(device), n))
         if p.persistent
@@ -276,6 +290,28 @@ def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
+class EpochOps(NamedTuple):
+    """The shard-aware points of :func:`epoch_body`.  The solo defaults
+    (:data:`SOLO_OPS`) work on the whole client axis; ``core.fleet``
+    substitutes collectives, so one :func:`epoch_body` serves the solo and
+    the client-sharded path.  The reference's ``train_keys`` point is, in
+    the port, the fleet handing :func:`epoch_body` its window of the
+    epoch's global draws (``core.draws.shard_draws``), and its
+    ``masked_mean`` / ``compact_mean`` points are :func:`_masked_mean` /
+    :func:`_compact_mean` with ``reduce_sum`` as their hook."""
+
+    # (spec, age, t, k, noise) -> (n_loc,) selection mask
+    select: Callable = policy_lib.epoch_selection
+    # a shard's partial sum (a count, a (P,) FedAvg partial) -> the fleet's
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor] = _identity
+    # the epoch's metrics: local sums (and the (n_loc,) ``selected``) ->
+    # fleet-wide sums (and the (N,) ``selected``)
+    reduce_metrics: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]] = _identity
+
+
+SOLO_OPS = EpochOps()
+
+
 def epoch_body(
     carry: EpochCarry,
     t: int,
@@ -289,12 +325,16 @@ def epoch_body(
     process: harvest_lib.HarvestProcess,
     stream: stream_lib.DataStream,
     channel: channel_lib.ChannelProcess,
+    ops: EpochOps = SOLO_OPS,
 ) -> Tuple[EpochCarry, Dict[str, torch.Tensor]]:
-    """One epoch of Alg. 1 over all N clients.  ``images``/``labels`` are
-    the per-client sample pools, which ``stream`` turns into this epoch's
-    view; ``channel`` decides which uploads land; ``draws`` are this
-    epoch's random draws."""
-    n, S, kappa = cfg.num_clients, cfg.slots_per_epoch, cfg.kappa
+    """One epoch of Alg. 1 over the clients in ``carry``: all N, or one
+    shard's n_loc when ``core.fleet`` drives it (``ops`` then carries the
+    collectives, and ``images``, ``labels`` and ``draws`` are the shard's
+    rows).  ``images``/``labels`` are the per-client sample pools, which
+    ``stream`` turns into this epoch's view; ``channel`` decides which
+    uploads land; ``draws`` are this epoch's random draws."""
+    N, S, kappa = cfg.num_clients, cfg.slots_per_epoch, cfg.kappa
+    n = carry.age.shape[0]  # the clients of this carry: N, or a shard's n_loc
 
     # --- per-epoch data view (the probe batch comes from it too) ---
     # (the ``ehfl.*`` ranges name the layers in a torch.profiler trace)
@@ -306,7 +346,7 @@ def epoch_body(
 
     # --- CLIENTSELECT (Alg. 2) on the freshly-broadcast global model ---
     with record_function("ehfl.select"):
-        selected = policy_lib.epoch_selection(spec, carry.age, t, cfg.k, draws.noise)
+        selected = ops.select(spec, carry.age, t, cfg.k, draws.noise)
     if spec.uses_vaoi:
         with record_function("ehfl.probe"):
             # one batched forward of the shared global model over all N·probe images
@@ -377,7 +417,7 @@ def epoch_body(
             for k, old in carry.msg_params.items()
         }
         with record_function("ehfl.fedavg"):
-            new_global = _masked_mean(contrib, upload_mask, carry.global_params)
+            new_global = _masked_mean(contrib, upload_mask, carry.global_params, ops.reduce_sum)
     else:
         # --- active-set compaction: gather the started clients into a
         # static (cap, ...) slab, train only the slab, write it back ---
@@ -405,15 +445,19 @@ def epoch_body(
         slab_new = (upload_mask & ~pending_in)[slab_idx] & slab_valid
         old_mask = upload_mask & pending_in
         with record_function("ehfl.fedavg"):
-            new_global = _compact_mean(trained, slab_new, carry.msg_params, old_mask, carry.global_params)
+            new_global = _compact_mean(
+                trained, slab_new, carry.msg_params, old_mask, carry.global_params, ops.reduce_sum
+            )
 
-    metrics = {
+    # sums over this carry's clients, folded into fleet-wide sums by ops;
+    # the two means divide by the global N
+    metrics = ops.reduce_metrics({
         "energy": st.energy_used.sum(),
-        "avg_age": age.sum() / n,
+        "avg_age": age.sum(),
         "n_started": st.started.sum(),
         # n_uploaded counts attempts (energy spent); n_delivered what landed
         "n_uploaded": st.uploaded.sum(),
-        "avg_m": m.sum() / n,
+        "avg_m": m.sum(),
         "n_delivered": upload_mask.sum(),
         "n_failed": failed.sum(),
         "n_dropped": dropped.sum(),
@@ -422,7 +466,9 @@ def epoch_body(
         "n_retried": (st.uploaded & (carry.retries > 0)).sum(),
         "n_resent": (upload_mask & (carry.retries > 0)).sum(),
         "selected": selected,  # (N,) mask: lets two runs compare selections exactly
-    }
+    })
+    metrics["avg_age"] = metrics["avg_age"] / N
+    metrics["avg_m"] = metrics["avg_m"] / N
     return (
         carry._replace(
             global_params=new_global,

@@ -45,6 +45,9 @@ class DataStream(NamedTuple):
     # (state, t, labels) -> (N, n_pool) sampling weights of the weighted
     # views (drift, shift), which ``step`` draws from through ``view_cdf``
     weights: Optional[Callable[[Any, int, torch.Tensor], torch.Tensor]] = None
+    # the client axis of ``epoch_draw``'s tensor (a fleet shard takes its
+    # rows there, ``core.draws.shard_draws``): 1 for arrival's (2, N)
+    draw_axis: int = 0
 
 
 def apply_view(idx: Optional[torch.Tensor], images: torch.Tensor, labels: torch.Tensor):
@@ -176,7 +179,7 @@ def arrival(rate: float = 2.0, burst: float = 1.0, window: float = 0, warm: floa
     def epoch_draw(g: torch.Generator, n: int, n_pool: int) -> torch.Tensor:
         return torch.rand(2, n, generator=g)
 
-    return DataStream("arrival", True, init, step, _no_init_draw, epoch_draw)
+    return DataStream("arrival", True, init, step, _no_init_draw, epoch_draw, draw_axis=1)
 
 
 def class_group(labels: torch.Tensor, num_phases: int, num_classes: int) -> torch.Tensor:
@@ -204,6 +207,14 @@ def shift(period: float = 50.0, num_phases: float = 2, num_classes: float = 10) 
 
 
 _FACTORIES: dict = {"static": static, "drift": drift, "arrival": arrival, "shift": shift}
+
+
+def state_sharding_tree(name: str) -> bool | None:
+    """Whether the scenario's carried state is per client (a fleet shard
+    holds its rows) or whole; None where it carries none.  With the draws
+    injected and sliced (``core.draws.shard_draws``), the scenario's own
+    ``init``/``step`` on a shard's rows is its sharded form."""
+    return {"static": None, "drift": True, "arrival": True, "shift": None}[name]
 
 
 def make_stream(name: str, **params: float) -> DataStream:
