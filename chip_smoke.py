@@ -31,7 +31,11 @@ result line):
    the state's decay across chunks, and a plain attention one key tile
    short of the window, must fail those limits) and on the same inputs in
    fp32 on their FMA routes (1e-4 of the largest output / 2e-5), both routes
-   timed.
+   timed.  Then both LM kernels at phase 11's prefill shapes (ZOO_SWA_SHAPES:
+   head dims 64 and 128, GQA groups 1 to 8, whisper's encoder non-causal
+   over 1500 frames; ZOO_SSD_SHAPE, jamba's scan at ds 16 over 128 heads),
+   bf16, each element within its limit, timed beside the plain version and
+   (attention) SDPA.
 4. The EHFL slice: ``run_simulation`` at the paper's width (the 845,738-parameter
    CNN, N=100 clients x 300 samples, k=10, S=30, kappa=20, a 500-image test
    set) for T epochs on the GPU, with ``TorchDraws(seed=0)``.  Only the depth
@@ -74,6 +78,24 @@ result line):
    GPU memory; (f) a rolling wrap at the same width: 2 layers, window 256,
    fp32, 600 tokens stepped, every 50th step's logits held against a
    kernel-route prefill of the same prefix.
+11. The rest of the zoo (``ZOO``), each at its published width, bf16,
+   random weights from ``torch.Generator`` seed 0 on the card, freed before
+   the next: qwen1.5-0.5b, codeqwen1.5-7b, command-r-35b, deepseek-moe-16b,
+   llama4-scout-17b-a16e at 12 of 48 layers (215.5 GB whole),
+   jamba-v0.1-52b at 16 of 32 (two super-blocks of 8; 102.9 GB whole),
+   internvl2-2b with 256 prefix embeddings a row and whisper-large-v3 over
+   1500 encoder frames.  For each, as in phases 6 and 7: (a) the prefill
+   step, median of 3 after a warm-up, the kernel counters at exactly the
+   spec's launches on the tensor-core routes, one profiled prefill (the
+   ``lm.moe`` and ``lm.cross`` ranges too) and, for MoE, the share of
+   token-expert choices dropped at the published capacity; (b) the plain
+   route, logits within LOGITS_LIMITS, and the same prefill with the
+   attention kernel's causal mask off, which must fail them; (c) 4 requests
+   of 128 prompt tokens through the serve step (whisper's after its cross
+   K/V cache is filled), then 16 greedy; (d) prefill against decode in bf16
+   at the run's depth (MoE at capacity_factor E / k, where nothing drops;
+   InternVL2 without a prefix) and in fp32 on a fresh 2-layer model at full
+   width; (e) peak memory.
 9a. The scenario axes at phase 4's width and depth: three runs that cover
    every harvest, stream and channel scenario (markov + drift + fading;
    hetero + arrival + erasure at p_loss 0.3, concentration 1.0; diurnal
@@ -167,7 +189,52 @@ REQ_B, REQ_P, REQ_G = 4, 320, 32
 # 0.0121 (cosine 0.99993) kernel against plain route at 16384 tokens and
 # 0.0129 (cosine 0.99991) prefill against decode on an H100 (PERF.md), and
 # the fp32 copy 2.8e-6: bf16 is held at 0.05 and cosine 0.999, fp32 at 1e-4.
-LOGITS_LIMITS = {"mamba2-1.3b": (0.2, 0.99, 1e-3), "starcoder2-3b": (0.05, 0.999, 1e-4)}
+# Phase 11 on an H100 (PERF.md): each fp32 2-layer check read 0.8e-6 to
+# 6.6e-6, held at 1e-4.  The dense stacks, internvl2 and whisper read 0.012-0.023
+# (cosine >= 0.99973) in both bf16 comparisons, as starcoder2-3b: held at
+# 0.05 and 0.999, which their attention kernel run without its causal mask
+# fails (0.084-1.63, cosine <= 0.9971).  deepseek-moe-16b read 0.111
+# (cosine 0.9948) kernel against plain route, llama4-scout 0.031 (0.9994),
+# jamba-v0.1-52b 0.094 (0.995; 14 SSM layers in bf16, as mamba2-1.3b): held
+# at 0.3 and 0.98, 0.1 and 0.99, and mamba2's 0.2 and 0.99.  Without its
+# causal mask the attention kernel reads 1.41 (0.13) and 0.86 (0.52); a scan
+# kernel that swaps B and C reads 0.226 (0.979) on jamba.  Jamba's 2
+# attention layers have no positions: over thousands of random keys each
+# row's softmax is near uniform, and the causal-mask mutant moved its logits
+# by 0.092 (0.9952), inside the limit, so it is printed, not required to fail.
+LOGITS_LIMITS = {
+    "mamba2-1.3b": (0.2, 0.99, 1e-3), "starcoder2-3b": (0.05, 0.999, 1e-4),
+    "qwen1.5-0.5b": (0.05, 0.999, 1e-4), "codeqwen1.5-7b": (0.05, 0.999, 1e-4), "command-r-35b": (0.05, 0.999, 1e-4),
+    "deepseek-moe-16b": (0.3, 0.98, 1e-4), "llama4-scout-17b-a16e": (0.1, 0.99, 1e-4),
+    "jamba-v0.1-52b": (0.2, 0.99, 1e-4), "internvl2-2b": (0.05, 0.999, 1e-4), "whisper-large-v3": (0.05, 0.999, 1e-4),
+}
+# Prefill against decode in bf16 where the stack routes tokens to experts:
+# top-k routing is discontinuous, and where bf16 rounding moves two experts'
+# probabilities past each other the prefill and the decode step send the
+# token to different experts (printed per layer; with top-1 that replaces its
+# whole routed output).  The fp32 2-layer check holds the function itself at
+# 1e-4.  deepseek-moe-16b read 0.074 (cosine 0.9971; 26 of 112 last-token
+# routes differ), llama4-scout 0.263 (0.963; 1 of 48), jamba 0.175 (0.985;
+# 4 of 32): held at 0.3 and 0.98, 0.5 and 0.9, 0.3 and 0.97.
+PREFILL_DECODE_BF16 = {
+    "deepseek-moe-16b": (0.3, 0.98), "llama4-scout-17b-a16e": (0.5, 0.9), "jamba-v0.1-52b": (0.3, 0.97),
+}
+
+# Phase 3's rows for phase 11: (B, H, Hkv, S, D, causal) of each arch's
+# prefill attention (whisper: its encoder, non-causal over 1500 frames, and
+# its decoder), and jamba's scan (B, S, heads, hp, ds, chunk)
+ZOO_SWA_SHAPES = {
+    "qwen1.5-0.5b": (4, 16, 16, 4096, 64, True),
+    "codeqwen1.5-7b": (1, 32, 32, 4096, 128, True),
+    "command-r-35b": (1, 64, 8, 4096, 128, True),
+    "deepseek-moe-16b": (1, 16, 16, 4096, 128, True),
+    "llama4-scout-17b-a16e": (1, 40, 8, 4096, 128, True),
+    "jamba-v0.1-52b": (1, 32, 8, 4096, 128, True),
+    "internvl2-2b": (4, 16, 8, 2048, 128, True),
+    "whisper-large-v3 encoder": (4, 20, 20, 1500, 64, False),
+    "whisper-large-v3 decoder": (4, 20, 20, 448, 64, True),
+}
+ZOO_SSD_SHAPE = (1, 4096, 128, 64, 16, 256)
 
 # swa_attention against swa_attention_ref: both read the same inputs and keep
 # scores, m, l and sums in fp32, so in fp32 (the FMA route) they differ by
@@ -750,11 +817,113 @@ def compare_logits(torch, got, want):
     }
 
 
-def step_prompts(torch, cfg, params, prompts, dev, decoder, make_serve_step):
-    """Decode-based prefill as serve_demo runs it: (last logits, cache, s)."""
+def within(cmp, rtol, cos) -> bool:
+    return cmp["rel_err"] <= rtol and cmp["min_cosine"] >= cos
+
+
+def require_within(cmp, rtol, cos, what) -> None:
+    if not within(cmp, rtol, cos):
+        raise AssertionError(f"{what} disagree: {cmp}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """One serving path driven by ``phase_lm_serving``: ``arch`` at its
+    published width, ``depth`` layers (0: the published depth), a prefill of
+    ``prefill_b`` x ``prefill_p`` tokens (after ``prefix_tokens`` prefix
+    embeddings a row; over encoder frames for an encoder-decoder) timed
+    ``runs`` times, ``launches`` of each kernel per prefill, requests of
+    ``req_p`` prompt tokens then ``req_g`` greedy ones, and the fp32 check
+    on a copy of the weights (``fp32_layers`` 0) or on a fresh model of
+    ``fp32_layers`` layers at full width.  ``mutants``: the kernels of the
+    path whose wrong version (``MUTANTS``) must make the prefill fail
+    LOGITS_LIMITS; the others' are run and printed.  Phase names start with
+    ``prefix``."""
+
+    arch: str
+    prefix: str
+    prefill_b: int
+    prefill_p: int
+    launches: dict
+    plain_runs: int = 2
+    runs: int = PREFILL_RUNS
+    depth: int = 0
+    prefix_tokens: int = 0
+    req_p: int = REQ_P
+    req_g: int = REQ_G
+    fp32_layers: int = 0
+    mutants: tuple = ()
+
+
+# Phase 11: the rest of the zoo at published width, bf16, random weights.
+# Two depth cuts, for memory on one 80 GB card: llama4-scout 12 of 48 layers
+# (215.5 GB whole), jamba 16 of 32 (two super-blocks of 8, layer kinds and
+# MoE placement unchanged; 102.9 GB whole).  Requests: 4 prompts of 128
+# tokens, then 16 greedy; the fp32 check on a 2-layer model at full width.
+ZOO_REQ = dict(runs=3, plain_runs=1, req_p=128, req_g=16, fp32_layers=2)
+ATTN = ("swa_attention",)
+ZOO = (
+    ServeSpec("qwen1.5-0.5b", "p11_qwen1.5-0.5b_", 4, 4096, {"swa_attention": 24}, mutants=ATTN, **ZOO_REQ),
+    ServeSpec("codeqwen1.5-7b", "p11_codeqwen1.5-7b_", 1, 4096, {"swa_attention": 32}, mutants=ATTN, **ZOO_REQ),
+    ServeSpec("command-r-35b", "p11_command-r-35b_", 1, 4096, {"swa_attention": 40}, mutants=ATTN, **ZOO_REQ),
+    ServeSpec("deepseek-moe-16b", "p11_deepseek-moe-16b_", 1, 4096, {"swa_attention": 28}, mutants=ATTN, **ZOO_REQ),
+    ServeSpec("llama4-scout-17b-a16e", "p11_llama4-scout-17b-a16e_", 1, 4096, {"swa_attention": 12}, depth=12,
+              mutants=ATTN, **ZOO_REQ),
+    ServeSpec("jamba-v0.1-52b", "p11_jamba-v0.1-52b_", 1, 4096, {"ssd_scan": 14, "swa_attention": 2}, depth=16,
+              mutants=("ssd_scan",), **ZOO_REQ),
+    ServeSpec("internvl2-2b", "p11_internvl2-2b_", 4, 1792, {"swa_attention": 24}, prefix_tokens=256,
+              mutants=ATTN, **ZOO_REQ),
+    ServeSpec("whisper-large-v3", "p11_whisper-large-v3_", 4, 448, {"swa_attention": 64}, mutants=ATTN, **ZOO_REQ),
+)
+
+
+def serve_config(spec: ServeSpec):
+    """The spec's config: its depth cut, nothing else (a hybrid keeps its
+    super-block of attn_period layers, so two blocks of 8 keep jamba's layer
+    kinds and MoE placement)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec.arch)
+    return dataclasses.replace(cfg, num_layers=spec.depth) if spec.depth else cfg
+
+
+def no_drop(cfg):
+    """capacity_factor = E / k: capacity C = G, so a prefill drops nothing,
+    as the decode step (one token a group) never does."""
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+
+def two_layer_config(torch, cfg):
+    """The fp32 check's model: full width, 2 layers (a hybrid interleaved
+    as reduced() does, SSM then attention with MoE; an encoder-decoder with
+    2 encoder layers), capacity_factor E / k."""
+    c = dataclasses.replace(no_drop(cfg), num_layers=2, dtype=torch.float32)
+    if c.ssm_state and c.attn_period > 1:
+        c = dataclasses.replace(c, attn_period=2, attn_offset=1, moe_period=min(c.moe_period, 2))
+    if c.is_encoder_decoder:
+        c = dataclasses.replace(c, num_encoder_layers=2)
+    return c
+
+
+def request_cache(torch, cfg, params, bsz, length, frames, dev, decoder):
+    """A serve cache for ``bsz`` requests; an encoder-decoder's cross K/V
+    planes filled from ``frames`` encoded on the kernel route."""
+    cache = decoder.init_cache(cfg, bsz, length, device=dev, cross_cache=cfg.is_encoder_decoder)
+    if cfg.is_encoder_decoder:
+        with torch.inference_mode():
+            enc = decoder.encode(cfg, params, frames, use_kernel=True)
+            cache = decoder.prefill_cross_cache(cfg, params, cache, enc)
+    return cache
+
+
+def step_prompts(torch, cfg, params, prompts, dev, decoder, make_serve_step, frames=None, greedy=0):
+    """Decode-based prefill as serve_demo runs it: (last logits, cache, s);
+    the cache holds ``greedy`` more positions."""
     bsz, plen = prompts.shape
     step = make_serve_step(cfg)
-    cache = decoder.init_cache(cfg, bsz, plen + REQ_G, device=dev)
+    cache = request_cache(torch, cfg, params, bsz, plen + greedy, frames, dev, decoder)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(plen):
@@ -768,41 +937,120 @@ def check_logits(torch, logits, shape, what):
         raise AssertionError(f"{what}: logits of shape {tuple(logits.shape)} (want {shape}) or non-finite")
 
 
-def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, prefix, plain_runs, route=None):
-    """Phases 6 and 7: ``arch`` served at full width and depth on the card.
-    (a) the prefill step on prefill_b x prefill_p through ``kernel``, timed,
-    counted (every launch on ``route`` where the kernel has routes) and
-    profiled; (b) the plain route, logits compared; (c) requests stepped
-    through the serve step, then greedy tokens; (d) prefill against decode at
-    REQ_P in bf16 and in an fp32 copy of the weights; (e) peak memory.  Phase
-    names start with ``prefix``.  Returns the launch counts of (a) and their
-    split by route."""
-    import dataclasses
+def moe_routings(run) -> list:
+    """The routing (``models.moe.route``) of every MoE call one call of
+    ``run`` makes, in call order (one call per MoE layer and step)."""
+    from repro_torch.models import moe
 
-    from repro_torch.configs import get_config
+    routings, inner = [], moe.apply_moe
+
+    def recording(cfg, p, x):
+        routings.append(moe.route(cfg, p, x))
+        return inner(cfg, p, x)
+
+    moe.apply_moe = recording
+    try:
+        run()
+    finally:
+        moe.apply_moe = inner
+    return routings
+
+
+def drop_shares(routings) -> dict:
+    """Share of token-expert choices that found no slot, over all the
+    layers' routings and per layer."""
+    dropped = [(r.keep.numel() - int(r.keep.sum().item()), r.keep.numel()) for r in routings]
+    shares = [d / n for d, n in dropped]
+    return {"moe_layers": len(routings), "drop_share": sum(d for d, _ in dropped) / sum(n for _, n in dropped),
+            "drop_share_min_layer": min(shares), "drop_share_max_layer": max(shares)}
+
+
+def last_token_routes(torch, routings) -> list:
+    """Each routing's experts for the last token, sorted: (B, k) each."""
+    return [torch.sort(r.top_idx[:, -1, -1], dim=-1).values for r in routings]
+
+
+@contextlib.contextmanager
+def attention_without_causal_mask(ops):
+    """A wrong kernel: swa_attention with its causal mask (and window) off."""
+    inner = ops.swa_attention
+    ops.swa_attention = lambda q, k, v, window=0, causal=True: inner(q, k, v, window=0, causal=False)
+    try:
+        yield
+    finally:
+        ops.swa_attention = inner
+
+
+@contextlib.contextmanager
+def scan_with_b_and_c_swapped(ops):
+    """A wrong kernel: ssd_scan reading C where it reads B and B where it
+    reads C (the state is written from C and read through B)."""
+    inner = ops.ssd_scan
+    ops.ssd_scan = lambda x, dt, A, Bm, Cm, chunk=128: inner(x, dt, A, Cm, Bm, chunk=chunk)
+    try:
+        yield
+    finally:
+        ops.ssd_scan = inner
+
+
+# each mutant by the kernel whose place it takes
+MUTANTS = {
+    "swa_attention": ("swa_attention without its causal mask", attention_without_causal_mask),
+    "ssd_scan": ("ssd_scan with B and C swapped", scan_with_b_and_c_swapped),
+}
+
+
+def phase_lm_serving(torch, dev, ops, smi, spec: ServeSpec):
+    """Phases 6, 7 and 11: one arch served at full width on the card.
+    (a) the prefill step through the kernels, timed, counted (exactly
+    ``spec.launches`` per prefill, every launch on the tensor-core route)
+    and profiled; (b) the plain route, logits compared (and, with
+    ``spec.mutant``, a wrong kernel that must fail the same limit); (c)
+    requests stepped through the serve step, then greedy tokens; (d)
+    prefill against decode at req_p in bf16 (MoE at capacity_factor E / k)
+    and in fp32; (e) peak memory.  Returns the launch counts of (a) and
+    their split by route."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import decoder
 
     torch.cuda.empty_cache()
-    cfg = get_config(arch)
-    vocab = cfg.vocab_size
-    bf16_rtol, bf16_cos, fp32_rtol = LOGITS_LIMITS[arch]
+    cfg = serve_config(spec)
+    prefix, vocab = spec.prefix, cfg.vocab_size
+    bf16_rtol, bf16_cos, fp32_rtol = LOGITS_LIMITS[spec.arch]
     t0 = time.perf_counter()
     params = decoder.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in flat_tensors(params))
     params_gb = sum(t.numel() * t.element_size() for t in flat_tensors(params)) / 1e9
     log(json.dumps({
-        "phase": f"{prefix}serving_init", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "phase": f"{prefix}serving_init", "arch": cfg.name, "layers": cfg.num_layers,
+        "published_layers": serve_config(dataclasses.replace(spec, depth=0)).num_layers,
+        "encoder_layers": cfg.num_encoder_layers, "d_model": cfg.d_model,
         "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+        "experts": cfg.num_experts, "top_k": cfg.experts_per_token, "shared_experts": cfg.num_shared_experts,
+        "layer_kinds": "".join("a" if cfg.layer_kind(i) == "attn" else "s" for i in range(cfg.num_layers)),
+        "moe_layers": [i for i in range(cfg.num_layers) if cfg.layer_moe(i)],
         "window": cfg.sliding_window, "vocab": vocab, "dtype": str(cfg.dtype), "params": n_params,
         "param_count_analytic": cfg.param_count(), "params_gb": params_gb, "init_s": time.perf_counter() - t0,
     }))
     g = torch.Generator(device=dev).manual_seed(1)
-    batch = {"tokens": torch.randint(0, vocab, (prefill_b, prefill_p), generator=g, device=dev)}
-    shape = (prefill_b, 1, vocab)
 
-    # (a) the main path: the prefill step through the kernel
+    def inputs(bsz, plen, prefix_tokens=0):
+        batch = {"tokens": torch.randint(0, vocab, (bsz, plen), generator=g, device=dev)}
+        if prefix_tokens:  # stand-ins for the stubbed vision frontend, at the embeddings' scale
+            batch["prefix_embeddings"] = (
+                torch.randn(bsz, prefix_tokens, cfg.d_model, generator=g, device=dev) * 0.02
+            ).to(cfg.dtype)
+        if cfg.is_encoder_decoder:  # stand-ins for the stubbed audio frontend
+            batch["encoder_frames"] = torch.randn(bsz, cfg.encoder_seq, cfg.d_model, generator=g, device=dev).to(
+                cfg.dtype
+            )
+        return batch
+
+    batch = inputs(spec.prefill_b, spec.prefill_p, spec.prefix_tokens)
+    shape = (spec.prefill_b, 1, vocab)
+
+    # (a) the main path: the prefill step through the kernels
     prefill = make_prefill_step(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -812,30 +1060,40 @@ def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, p
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     times = []
-    for _ in range(PREFILL_RUNS):
+    for _ in range(spec.runs):
         t0 = time.perf_counter()
         logits = prefill(params, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches, routes = ops.launch_counts(), ops.route_launch_counts()
     peak_prefill = torch.cuda.max_memory_allocated() / 1e9
-    want = {name: 0 for name in launches}
-    want[kernel] = cfg.num_layers * PREFILL_RUNS
+    want = {name: spec.launches.get(name, 0) * spec.runs for name in launches}
     if launches != want:
-        raise AssertionError(f"prefill launches {launches} != {want}: the main path missed the {kernel} kernel")
-    if route is not None and routes[kernel][route] != want[kernel]:
-        raise AssertionError(f"prefill {kernel} launches by route {routes[kernel]}: all {want[kernel]} must be {route}")
+        raise AssertionError(f"{cfg.name} prefill launches {launches} != {want}: the main path missed a kernel")
+    for name in spec.launches:
+        if routes[name]["launches_tc"] != want[name]:
+            raise AssertionError(f"{cfg.name} prefill {name} launches by route {routes[name]}: "
+                                 f"all {want[name]} must be on the tensor cores")
     check_logits(torch, logits, shape, "prefill")
     median_ms = statistics.median(times)
-    log(json.dumps({
-        "phase": f"{prefix}serving_prefill", "batch": prefill_b, "prompt_len": prefill_p, "runs_ms": times,
-        "median_ms": median_ms, "first_call_ms": first_ms,
-        "prefill_tokens_per_s": prefill_b * prefill_p / (median_ms / 1e3),
-        "launches": launches, f"{kernel}_launches_per_prefill": launches[kernel] / PREFILL_RUNS,
-        "route_launches": routes.get(kernel), "power_limit": smi,
-    }))
+    positions = spec.prefill_b * (spec.prefill_p + spec.prefix_tokens)
+    row = {
+        "phase": f"{prefix}serving_prefill", "batch": spec.prefill_b, "prompt_len": spec.prefill_p,
+        "prefix_tokens": spec.prefix_tokens, "encoder_frames": cfg.encoder_seq if cfg.is_encoder_decoder else 0,
+        "runs_ms": times, "median_ms": median_ms, "first_call_ms": first_ms,
+        "prefill_tokens_per_s": spec.prefill_b * spec.prefill_p / (median_ms / 1e3),
+        "prefill_positions_per_s": positions / (median_ms / 1e3),
+        "launches": launches, "launches_per_prefill": {k: v / spec.runs for k, v in launches.items() if v},
+        "route_launches": {k: routes[k] for k in spec.launches}, "power_limit": smi,
+    }
+    if cfg.is_encoder_decoder:
+        row["encoder_frames_per_s"] = spec.prefill_b * cfg.encoder_seq / (median_ms / 1e3)
+    log(json.dumps(row))
     log(json.dumps({"phase": f"{prefix}serving_prefill_profile",
                     **profile_run(torch, lambda: prefill(params, batch), dev, "lm.")}))
+    if cfg.num_experts:
+        log(json.dumps({"phase": f"{prefix}serving_moe_drops", "capacity_factor": cfg.capacity_factor,
+                        **drop_shares(moe_routings(lambda: prefill(params, batch)))}))
 
     # (b) the same prefill through the plain route
     plain = make_prefill_step(cfg, use_kernel=False)
@@ -843,7 +1101,7 @@ def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, p
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain_times = []
-    for _ in range(plain_runs):
+    for _ in range(spec.plain_runs):
         t0 = time.perf_counter()
         logits_plain = plain(params, batch)
         torch.cuda.synchronize()
@@ -853,63 +1111,97 @@ def phase_lm_serving(torch, dev, ops, smi, arch, prefill_b, prefill_p, kernel, p
     cmp = compare_logits(torch, logits, logits_plain)
     log(json.dumps({"phase": f"{prefix}serving_prefill_plain", "median_ms": statistics.median(plain_times),
                     "runs_ms": plain_times, "rtol": bf16_rtol, "min_cosine_allowed": bf16_cos, **cmp}))
-    if not (cmp["rel_err"] <= bf16_rtol and cmp["min_cosine"] >= bf16_cos):
-        raise AssertionError(f"prefill logits through the kernel and the plain route disagree: {cmp}")
+    require_within(cmp, bf16_rtol, bf16_cos, f"{cfg.name} prefill logits through the kernel and the plain route")
+    for kernel in spec.launches if spec.mutants else ():
+        name, mutant = MUTANTS[kernel]
+        with mutant(ops):
+            wrong = compare_logits(torch, prefill(params, batch), logits_plain)
+        fails = not within(wrong, bf16_rtol, bf16_cos)
+        log(json.dumps({"phase": f"{prefix}serving_prefill_mutant", "mutant": name,
+                        "must_fail": kernel in spec.mutants, "fails_limit": fails, **wrong}))
+        if kernel in spec.mutants and not fails:
+            raise AssertionError(f"{cfg.name}: a wrong {kernel} passes LOGITS_LIMITS: {wrong}")
     del logits_plain, batch
 
     # (c) requests as serve_demo runs them, and (d) prefill against decode
     torch.cuda.reset_peak_memory_stats()
-    prompts = torch.randint(0, vocab, (REQ_B, REQ_P), generator=g, device=dev)
-    last, cache, prompt_s = step_prompts(torch, cfg, params, prompts, dev, decoder, make_serve_step)
+    req = inputs(REQ_B, spec.req_p)
+    frames = req.get("encoder_frames")
+    last, cache, prompt_s = step_prompts(torch, cfg, params, req["tokens"], dev, decoder, make_serve_step,
+                                         frames, spec.req_g)
     step = make_serve_step(cfg)
     tok = torch.argmax(last[:, -1], dim=-1)[:, None]
     generated = [tok]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(REQ_P, REQ_P + REQ_G):
+    for t in range(spec.req_p, spec.req_p + spec.req_g):
         logits, cache = step(params, cache, tok, torch.full((REQ_B,), t, device=dev))
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         generated.append(tok)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     check_logits(torch, logits, (REQ_B, 1, vocab), "decode")
-    pos = torch.full((REQ_B,), REQ_P + REQ_G, device=dev)
+    pos = torch.full((REQ_B,), spec.req_p + spec.req_g, device=dev)
     log(json.dumps({"phase": f"{prefix}serving_decode_profile",
                     **profile_run(torch, lambda: step(params, cache, tok, pos), dev, "lm.")}))
     out = torch.cat(generated, dim=1)
-    if out.shape != (REQ_B, REQ_G + 1) or not bool(((out >= 0) & (out < vocab)).all()):
+    if out.shape != (REQ_B, spec.req_g + 1) or not bool(((out >= 0) & (out < vocab)).all()):
         raise AssertionError(f"greedy decode produced {tuple(out.shape)} tokens outside the vocab")
+    kv = [c for c in cache if "k" in c]
     log(json.dumps({
-        "phase": f"{prefix}serving_requests", "batch": REQ_B, "prompt_len": REQ_P, "greedy_tokens": REQ_G,
-        "cache_width": cache[0]["k"].shape[1] if "k" in cache[0] else None,
-        "prompt_step_s": prompt_s, "prompt_tokens_per_s": REQ_B * REQ_P / prompt_s,
-        "decode_ms_per_step": decode_s / REQ_G * 1e3, "decode_tokens_per_s": REQ_B * REQ_G / decode_s,
+        "phase": f"{prefix}serving_requests", "batch": REQ_B, "prompt_len": spec.req_p, "greedy_tokens": spec.req_g,
+        "cache_width": kv[0]["k"].shape[1] if kv else None,
+        "cross_planes": list(cache[0]["ck"].shape) if "ck" in cache[0] else None,
+        "prompt_step_s": prompt_s, "prompt_tokens_per_s": REQ_B * spec.req_p / prompt_s,
+        "decode_ms_per_step": decode_s / spec.req_g * 1e3, "decode_tokens_per_s": REQ_B * spec.req_g / decode_s,
         "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "first_tokens": out[:, :8].tolist(),
         "power_limit": smi,
     }))
     del cache
-    for c in (cfg, dataclasses.replace(cfg, dtype=torch.float32)):
-        name = str(c.dtype).replace("torch.", "")
-        p = params
-        if c.dtype == torch.float32:  # the same weights in fp32
-            p = map_tensors(params, lambda t: t.float())
-            last, _, _ = step_prompts(torch, c, p, prompts, dev, decoder, make_serve_step)
-        pre = make_prefill_step(c)(p, {"tokens": prompts})
-        check_logits(torch, pre, (REQ_B, 1, vocab), f"{name} prefill at P={REQ_P}")
-        tol, cos = (fp32_rtol, 0.0) if c.dtype == torch.float32 else (bf16_rtol, bf16_cos)
-        row = {"phase": f"{prefix}serving_prefill_vs_decode", "dtype": name, "prompt_len": REQ_P, "rtol": tol,
-               "min_cosine_allowed": cos, **compare_logits(torch, pre, last)}
-        log(json.dumps(row))
-        if not (row["rel_err"] <= tol and row["min_cosine"] >= cos):
-            raise AssertionError(f"{name}: prefill logits and the serve step's disagree: {row}")
-        del p, pre
 
+    def prefill_vs_decode(c, p, decoded):
+        name = str(c.dtype).replace("torch.", "")
+        pre = make_prefill_step(c)(p, req)
+        check_logits(torch, pre, (REQ_B, 1, vocab), f"{name} prefill at P={spec.req_p}")
+        tol, cos = (fp32_rtol, 0.0) if c.dtype == torch.float32 else PREFILL_DECODE_BF16.get(
+            spec.arch, (bf16_rtol, bf16_cos))
+        row = {"phase": f"{prefix}serving_prefill_vs_decode", "dtype": name, "layers": c.num_layers,
+               "prompt_len": spec.req_p, "capacity_factor": c.capacity_factor if c.num_experts else None,
+               "rtol": tol, "min_cosine_allowed": cos, **compare_logits(torch, pre, decoded)}
+        log(json.dumps(row))
+        require_within(row, tol, cos, f"{cfg.name} {name}: prefill logits and the serve step's")
+
+    # bf16 at the run's depth; the decode step never drops, so its logits
+    # from (c) stand for capacity_factor E / k too
+    prefill_vs_decode(no_drop(cfg), params, last)
+    if cfg.num_experts:  # routing is discontinuous: where do the two routes part?
+        pre = last_token_routes(torch, moe_routings(lambda: make_prefill_step(no_drop(cfg))(params, req)))
+        dec = last_token_routes(torch, moe_routings(
+            lambda: step_prompts(torch, cfg, params, req["tokens"], dev, decoder, make_serve_step, frames)
+        ))[-len(pre):]
+        flips = [int((a != b).any(dim=-1).sum().item()) for a, b in zip(pre, dec)]
+        log(json.dumps({"phase": f"{prefix}serving_prefill_vs_decode_routes", "dtype": "bfloat16",
+                        "moe_layers": len(pre), "rows": REQ_B, "last_token_routes_differing_by_layer": flips,
+                        "share": sum(flips) / (len(pre) * REQ_B)}))
     # (e) peak memory
     log(json.dumps({"phase": f"{prefix}serving_memory", "peak_prefill_gb": peak_prefill,
                     "peak_plain_prefill_gb": peak_plain, "params_gb": params_gb, "power_limit": smi}))
-    del params, last
+    if spec.fp32_layers:  # a fresh fp32 model at full width and fp32_layers layers
+        del params, last
+        torch.cuda.empty_cache()
+        c32 = two_layer_config(torch, cfg)
+        p32 = decoder.init_params(c32, seed=0, device=dev)
+    else:  # the same weights in fp32
+        c32, p32 = dataclasses.replace(cfg, dtype=torch.float32), map_tensors(params, lambda t: t.float())
+        del params, last
+    last32, _, _ = step_prompts(torch, c32, p32, req["tokens"], dev, decoder, make_serve_step,
+                                None if frames is None else frames.float())
+    if c32.is_encoder_decoder:
+        req["encoder_frames"] = frames.float()
+    prefill_vs_decode(c32, p32, last32)
+    del p32, req
     torch.cuda.empty_cache()
-    return launches, routes.get(kernel)
+    return launches, {k: routes[k] for k in spec.launches}
 
 
 def swa_work(b, h, hkv, s, d, window, causal, elt):
@@ -930,18 +1222,22 @@ def swa_inputs(torch, g, b, h, hkv, s, d, dtype, dev):
     )
 
 
-def library_attention_ms(torch, q, k, v, window):
-    """One PyTorch call computing the same function: SDPA with an (S, S)
-    boolean band mask and GQA.  If it cannot run at this S, halve S until it
-    can; returns (ms, S it ran at, why it could not run at the full S)."""
+def library_attention_ms(torch, q, k, v, window, causal=True):
+    """One PyTorch call computing the same function: SDPA with GQA and an
+    (S, S) boolean band mask for a window, ``is_causal`` for full causal
+    attention, no mask when not causal.  If it cannot run at this S, halve S
+    until it can; returns (ms, S it ran at, why it could not run at the
+    full S)."""
     F = torch.nn.functional
     s, why = q.shape[2], None
     while s >= 64:
         try:
             args = [t[:, :, :s] for t in (q, k, v)]
-            i = torch.arange(s, device=q.device)
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-            return time_ms(lambda: F.scaled_dot_product_attention(*args, attn_mask=mask, enable_gqa=True),
+            kw = {"is_causal": causal}
+            if causal and window > 0:
+                i = torch.arange(s, device=q.device)
+                kw = {"attn_mask": (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)}
+            return time_ms(lambda: F.scaled_dot_product_attention(*args, enable_gqa=True, **kw),
                            iters=10, warmup=2), s, why
         except (RuntimeError, TypeError) as e:  # the yardstick only; the port never calls SDPA
             why = why or repr(e)[:300]
@@ -1044,6 +1340,67 @@ def phase_swa_kernel(torch, ref, kern_swa, dev):
     log(json.dumps({"phase": "swa_kernel_sweep", "cases": n_checked, "max_abs_err": worst, "tol": SWA_TOL,
                     "ok": True}))
     return row
+
+
+def phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev):
+    """Phase 3 (phase 11's shapes): swa_attention at every attention shape
+    the zoo's prefills give it, ssd_scan at jamba's, bf16 on the
+    tensor-core routes, each element within bf16_limit / ssd_bf16_limit of
+    the plain version on the same inputs; kernel, plain version and (for
+    attention) SDPA timed, bounds from this run's shapes."""
+    g = torch.Generator().manual_seed(5)
+    rows = {"swa_attention": [], "ssd_scan": []}
+    for arch, (b, h, hkv, s, d, causal) in ZOO_SWA_SHAPES.items():
+        q, k, v = swa_inputs(torch, g, b, h, hkv, s, d, torch.bfloat16, dev)
+        tc = kern_swa.launches_tc
+        got = kern_swa(q, k, v, causal=causal)
+        if kern_swa.launches_tc != tc + 1:
+            raise AssertionError(f"swa_attention at {arch}'s shape did not take the tensor-core route")
+        want = ref.swa_attention_ref(q, k, v, causal=causal)
+        err, ratio, ok = swa_error(got, want, q, k, v, 0, causal)
+        del got, want
+        if not ok:
+            raise AssertionError(f"swa_attention at {arch}'s shape {(b, h, hkv, s, d, causal)} disagrees with its "
+                                 f"plain version: {err} ({ratio} of bf16_limit)")
+        nbytes, flops = swa_work(b, h, hkv, s, d, 0, causal, 2)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        ms = time_ms(lambda: kern_swa(q, k, v, causal=causal), iters=10, warmup=2)
+        lib_ms, lib_s, lib_why = library_attention_ms(torch, q, k, v, 0, causal)
+        row = {
+            "kernel": "swa_attention", "arch": arch, "shape": [b, h, hkv, s, d, 0], "causal": causal,
+            "group": h // hkv, "dtype": "bfloat16, strided (B, S, H, D) views", "route": "tensor cores",
+            "max_abs_err": err, "max_ratio_to_bf16_limit": ratio, "ms": ms, "bf16_bound_share": b_ms / ms,
+            "plain_ms": time_ms(lambda: ref.swa_attention_ref(q, k, v, causal=causal), iters=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+            "library_ms": lib_ms, "library": "scaled_dot_product_attention(is_causal, enable_gqa=True)",
+            "library_seq": lib_s, "library_failed_at_full_seq": lib_why,
+        }
+        log(json.dumps({"phase": "zoo_kernel_shape", **row}))
+        rows["swa_attention"].append(row)
+        del q, k, v
+    b, s, nh, hp, ds, L = ZOO_SSD_SHAPE
+    inputs = ssd_inputs(torch, g, b, s, nh, hp, ds, torch.bfloat16, dev)
+    tc = kern_ssd.launches_tc
+    got, want = kern_ssd(*inputs, chunk=L), ref.ssd_scan_ref(*inputs)
+    ratios = ssd_limit_ratios(got, want, inputs)
+    err = max((a - w).abs().max().item() for a, w in zip(got, want))
+    del got, want
+    if kern_ssd.launches_tc != tc + 1 or max(ratios) > 1.0:
+        raise AssertionError(f"ssd_scan at jamba's shape disagrees with its plain version ({ratios} of "
+                             f"ssd_bf16_limit) or missed the tensor-core route")
+    nbytes, flops = ssd_work(b, s, nh, hp, ds, L, 2)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    ms = time_ms(lambda: kern_ssd(*inputs, chunk=L))
+    row = {
+        "kernel": "ssd_scan", "arch": "jamba-v0.1-52b", "shape": [b, s, nh, hp, ds, L],
+        "dtype": "bfloat16 x/B/C, strided", "route": "tensor cores", "max_abs_err": err,
+        "max_ratio_to_ssd_bf16_limit_y_state": ratios, "ms": ms, "bf16_bound_share": b_ms / ms,
+        "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*inputs), iters=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "gflop": flops / 1e9, "gbytes": nbytes / 1e9, "library_ms": None,
+    }
+    log(json.dumps({"phase": "zoo_kernel_shape", **row}))
+    rows["ssd_scan"].append(row)
+    return rows
 
 
 def phase_rolling_wrap(torch, dev):
@@ -1869,6 +2226,7 @@ def main() -> int:
     kresults = phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, dev)
     kresults["ssd_scan"] = [phase_ssd_kernel(torch, ref, kern_ssd, dev)]
     kresults["swa_attention"] = [phase_swa_kernel(torch, ref, kern_swa, dev)]
+    zoo_rows = phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev)
 
     # --- phase 4: the slice on the card ---
     T = args.epochs
@@ -1916,13 +2274,18 @@ def main() -> int:
     log(json.dumps(cmp))
 
     # --- phase 6: the serving slice, mamba2-1.3b at full width ---
-    serve_launches, serve_routes = phase_lm_serving(torch, dev, ops, smi, "mamba2-1.3b", PREFILL_B, PREFILL_P,
-                                                    "ssd_scan", prefix="", plain_runs=3, route="launches_tc")
+    serve_launches, serve_routes = phase_lm_serving(torch, dev, ops, smi, ServeSpec(
+        "mamba2-1.3b", "", PREFILL_B, PREFILL_P, {"ssd_scan": 48}, plain_runs=3))
 
     # --- phase 7: the attention slice, starcoder2-3b at full width ---
-    sc_launches, sc_routes = phase_lm_serving(torch, dev, ops, smi, "starcoder2-3b", SC_PREFILL_B, SC_PREFILL_P,
-                                              "swa_attention", prefix="sc_", plain_runs=2, route="launches_tc")
+    sc_launches, sc_routes = phase_lm_serving(torch, dev, ops, smi, ServeSpec(
+        "starcoder2-3b", "sc_", SC_PREFILL_B, SC_PREFILL_P, {"swa_attention": 30}))
     phase_rolling_wrap(torch, dev)
+
+    # --- phase 11: the rest of the zoo at published width ---
+    t0 = time.perf_counter()
+    zoo_launches = {spec.arch: phase_lm_serving(torch, dev, ops, smi, spec)[0] for spec in ZOO}
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     # --- phase 9a: the scenario axes at paper width ---
     torch.cuda.empty_cache()
@@ -1959,15 +2322,19 @@ def main() -> int:
     ssd = entry("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:73",
                 kresults["ssd_scan"], serve_launches)
     ssd_row = kresults["ssd_scan"][0]
-    ssd.update(launches_per_prefill=serve_launches["ssd_scan"] // PREFILL_RUNS, route_launches=serve_routes,
+    ssd.update(launches_per_prefill=serve_launches["ssd_scan"] // PREFILL_RUNS, route_launches=serve_routes["ssd_scan"],
                bf16_bound_share=ssd_row["bf16_bound_share"], fp32_route_ms=ssd_row["fp32_route_ms"],
                bound_fp32_route_ms=ssd_row["bound_fp32_route_ms"])
     swa = entry("swa_attention", "src/repro_torch/csrc/swa_attention.cu", "src/repro/kernels/swa_attention.py:79",
                 kresults["swa_attention"], sc_launches)
     swa_row = kresults["swa_attention"][0]
-    swa.update(launches_per_prefill=sc_launches["swa_attention"] // PREFILL_RUNS, route_launches=sc_routes,
+    swa.update(launches_per_prefill=sc_launches["swa_attention"] // PREFILL_RUNS,
+               route_launches=sc_routes["swa_attention"],
                bf16_bound_share=swa_row["bf16_bound_share"], fp32_route_ms=swa_row["fp32_route_ms"],
                bound_fp32_route_ms=swa_row["bound_fp32_route_ms"])
+    for e in (ssd, swa):  # phase 11: its prefills' launches, and phase 3's rows at their shapes
+        e.update(launches_phase11={arch: n[e["name"]] for arch, n in zoo_launches.items() if n[e["name"]]},
+                 phase11_shapes=zoo_rows[e["name"]])
     ehfl = [
         entry("vaoi_distance", "src/repro_torch/csrc/vaoi_distance.cu",
               "src/repro/kernels/vaoi_distance.py:49", kresults["vaoi_distance"], launches),

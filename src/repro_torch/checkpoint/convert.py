@@ -7,7 +7,8 @@ port's flatten before ``fc0`` is in the reference's (h, w, c) order).
 Decoder: the reference keeps ``blocks``, a tuple of ``cfg.block_period``
 per-position dicts whose leaves are stacked over ``n_blocks``; layer
 ``b * period + j`` is entry ``b`` of position ``j``.  The port keeps one
-dict per layer.  Leaves keep their layout (dense weights (in, out)); bf16
+dict per layer (an encoder-decoder's ``enc_blocks`` likewise become
+``enc_layers``).  Leaves keep their layout (dense weights (in, out)); bf16
 leaves arrive as ``ml_dtypes.bfloat16`` or as a uint16 view and leave as a
 uint16 view, bit for bit.  All inputs and outputs are numpy arrays, so
 neither side imports the other."""
@@ -135,48 +136,57 @@ def _stack_blocks(layers: Sequence[Any], period: int) -> tuple:
     )
 
 
-_DECODER_KEYS = {"embed", "final_norm", "blocks", "lm_head"}
+_DECODER_KEYS = {
+    "embed", "final_norm", "blocks", "lm_head", "pos_embed", "enc_blocks", "enc_pos_embed", "enc_final_norm"
+}
+# leaves and subtrees outside the layer stacks, carried as they are
+_PLAIN_KEYS = ("embed", "final_norm", "lm_head", "pos_embed", "enc_pos_embed", "enc_final_norm")
+
+
+def _check_period(positions: Sequence[Any], cfg, what: str) -> None:
+    if len(positions) != cfg.block_period:
+        raise ValueError(f"{len(positions)} {what} positions, but {cfg.name} has period {cfg.block_period}")
 
 
 def decoder_params_from_reference(np_params: Mapping[str, Any], cfg, device: str | torch.device | None = None):
     """Reference decoder params (numpy leaves) -> the port's
-    ``models.decoder`` params."""
-    from repro_torch.models.decoder import check_ported
+    ``models.decoder`` params: ``blocks`` become ``layers`` and an
+    encoder-decoder's ``enc_blocks`` become ``enc_layers``, one dict per
+    layer (MoE layers' fp32 ``router`` stays fp32 in a bf16 tree)."""
+    from repro_torch.models.decoder import encoder_config
 
-    check_ported(cfg)
     extra = set(np_params) - _DECODER_KEYS
     if extra:
-        raise NotImplementedError(f"params {sorted(extra)} belong to parts the port does not have (ROADMAP queue 1)")
-    if len(np_params["blocks"]) != cfg.block_period:
-        raise ValueError(f"{len(np_params['blocks'])} block positions, but {cfg.name} has period {cfg.block_period}")
+        raise ValueError(f"params {sorted(extra)} are not decoder params")
     device = resolve_device(device)
-    out = {
-        "embed": tensor_from_numpy(np_params["embed"], device),
-        "final_norm": _map(lambda a: tensor_from_numpy(a, device), np_params["final_norm"]),
-        "layers": _unstack_blocks(np_params["blocks"], cfg.num_layers, device),
-    }
-    if "lm_head" in np_params:
-        out["lm_head"] = tensor_from_numpy(np_params["lm_head"], device)
+    _check_period(np_params["blocks"], cfg, "block")
+    out = {k: _map(lambda a: tensor_from_numpy(a, device), np_params[k]) for k in _PLAIN_KEYS if k in np_params}
+    out["layers"] = _unstack_blocks(np_params["blocks"], cfg.num_layers, device)
+    if "enc_blocks" in np_params:
+        enc = encoder_config(cfg)
+        _check_period(np_params["enc_blocks"], enc, "encoder block")
+        out["enc_layers"] = _unstack_blocks(np_params["enc_blocks"], enc.num_layers, device)
     return out
 
 
 def decoder_params_to_reference(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
     """Inverse of :func:`decoder_params_from_reference`: numpy leaves in the
     reference's layout, bf16 as a uint16 view."""
-    out = {
-        "embed": tensor_to_numpy(params["embed"]),
-        "final_norm": _map(tensor_to_numpy, params["final_norm"]),
-        "blocks": _stack_blocks(params["layers"], cfg.block_period),
-    }
-    if "lm_head" in params:
-        out["lm_head"] = tensor_to_numpy(params["lm_head"])
+    from repro_torch.models.decoder import encoder_config
+
+    out = {k: _map(tensor_to_numpy, params[k]) for k in _PLAIN_KEYS if k in params}
+    out["blocks"] = _stack_blocks(params["layers"], cfg.block_period)
+    if "enc_layers" in params:
+        out["enc_blocks"] = _stack_blocks(params["enc_layers"], encoder_config(cfg).block_period)
     return out
 
 
 def decoder_cache_from_reference(np_cache: Sequence[Any], cfg, device: str | torch.device | None = None):
     """Reference decode cache (a tuple of per-position dicts stacked over
     blocks: ``k``/``v`` (B, W, Hkv, hd) for attention layers, ``conv`` in the
-    model dtype and ``ssm`` fp32 for SSM layers) -> one dict per layer."""
+    model dtype and ``ssm`` fp32 for SSM layers, and an encoder-decoder's
+    cross-attention planes ``ck``/``cv`` (B, S_enc, Hkv, hd)) -> one dict
+    per layer."""
     return _unstack_blocks(np_cache, cfg.num_layers, resolve_device(device))
 
 

@@ -4,7 +4,8 @@
 Every ported arch gets a module ``src/repro_torch/configs/<id>.py`` that
 exports ``CONFIG`` (the exact published spec).  ``reduced()`` derives the
 CPU smoke-test variant with exactly the reference's reduced fields.  The
-registry loads only the arch modules the port has (``_ARCH_MODULES``).
+registry loads every arch module in ``_ARCH_MODULES``: the reference's
+archs, all of them.
 """
 from __future__ import annotations
 
@@ -175,9 +176,18 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
-# The port's arch modules; the other reference archs wait for their model
-# families or their config files (ROADMAP queue 1).
-_ARCH_MODULES = ["mamba2_1_3b", "starcoder2_3b"]
+_ARCH_MODULES = [
+    "deepseek_moe_16b",
+    "internvl2_2b",
+    "llama4_scout_17b_a16e",
+    "jamba_v0_1_52b",
+    "command_r_35b",
+    "starcoder2_3b",
+    "qwen1_5_0_5b",
+    "codeqwen1_5_7b",
+    "whisper_large_v3",
+    "mamba2_1_3b",
+]
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
@@ -195,7 +205,7 @@ def _ensure_loaded() -> None:
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown or unported arch {name!r}; the port has: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

@@ -1,13 +1,17 @@
-"""GQA attention: the port of ``repro.models.attention`` for decoder layers.
+"""GQA attention: the port of ``repro.models.attention``.
 
-Full-sequence causal / sliding-window attention for prefill, KV-cache decode
-and the rolling-window cache for long-context decode.  Weights keep the
+Full-sequence causal / sliding-window / full attention for prefill and the
+encoder, KV-cache decode, the rolling-window cache for long-context decode,
+and cross-attention to an encoder's output (whisper).  Weights keep the
 reference's layout (dense weights (in, out), ``x @ W``) and activations its
 (B, S, H, hd) layout.  ``attn_forward(use_kernel=False)`` computes exactly
-the reference's masked-softmax path; ``use_kernel=True`` sends the attention
-to ``kernels.ops.swa_attention`` (the Hopper kernel on CUDA tensors), which
-computes the same function with fp32 scores and probabilities.
-Cross-attention waits for whisper (ROADMAP queue 1 #11).
+the reference's masked-softmax path; ``use_kernel=True`` sends
+self-attention to ``kernels.ops.swa_attention`` (the Hopper kernel on CUDA
+tensors), which computes the same function with fp32 scores and
+probabilities.  Cross-attention (queries over the decoder's S tokens, keys
+over the encoder's frames) is plain PyTorch on either route: no TPU kernel
+computes it (the reference's is plain ``jnp`` too), and ``swa_attention``
+takes one length for queries and keys.
 """
 from __future__ import annotations
 
@@ -21,8 +25,6 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import Params, apply_rope, dense_init
-
-_CROSS = "cross-attention (encoder_out) is not ported: it waits for whisper (ROADMAP queue 1 #11)"
 
 
 def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
@@ -120,25 +122,28 @@ def attn_forward(
     encoder_out: Optional[torch.Tensor] = None,
     use_kernel: bool = False,
 ) -> torch.Tensor:
-    """Full-sequence attention (prefill).  x: (B, S, d); positions: (S,) or
-    (B, S).  window > 0 => sliding-window causal.
+    """Full-sequence attention (prefill, the encoder, cross-attention).
+    x: (B, S, d); positions: (S,) or (B, S).  window > 0 => sliding-window
+    causal.  ``encoder_out`` (B, S_enc, d): cross-attention, keys and values
+    from it, no RoPE on them and no mask.
 
     ``use_kernel=True`` passes q and k after RoPE, and v, as (B, H, S, hd)
     views of the projections to ``kernels.ops.swa_attention``, K/V at their
     own Hkv heads; the output comes back as a view in (B, S, H, hd) order.
     The reference applies no mask (and so no window) when not causal; the
-    kernel route follows it."""
-    if encoder_out is not None:
-        raise NotImplementedError(_CROSS)
+    kernel route follows it.  Cross-attention takes the plain route whatever
+    ``use_kernel`` says (see the module's docstring)."""
+    cross = encoder_out is not None
     with record_function("lm.qkv"):
-        q, k, v = _project_qkv(cfg, p, x, x)
-        if cfg.use_rope:
+        q, k, v = _project_qkv(cfg, p, x, encoder_out if cross else x)
+        if cfg.use_rope and not cross:
             pos_b = positions if positions.dim() == 2 else positions[None, :]
             q = apply_rope(q, pos_b, cfg.rope_theta)
             k = apply_rope(k, pos_b, cfg.rope_theta)
+    causal = causal and not cross
     B, S, nh, hd = q.shape
     with record_function("lm.attn"):
-        if use_kernel:
+        if use_kernel and not cross:
             o = kops.swa_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window if causal else 0, causal=causal
             )
@@ -163,6 +168,37 @@ def attn_forward(
 # ---------------------------------------------------------------------------
 
 
+def cross_kv(cfg: ModelConfig, p: Params, encoder_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the encoder output to cross-attention K/V once (at prefill):
+    (B, S_enc, Hkv, hd) each.  Decode then reads these planes instead of
+    re-projecting every frame per token."""
+    B, S = encoder_out.shape[:2]
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = encoder_out @ p["wk"]
+    v = encoder_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
+
+
+def _unmasked_out(cfg: ModelConfig, p: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    attn = torch.softmax(_gqa_scores(q, k).float(), dim=-1).to(q.dtype)
+    out = _gqa_out(attn, v) @ p["wo"]
+    if cfg.attn_out_bias:
+        out = out + p["bo"]
+    return out
+
+
+def cross_decode_cached(
+    cfg: ModelConfig, p: Params, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor
+) -> torch.Tensor:
+    """One-token cross-attention against cached K/V planes. x: (B, 1, d)."""
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return _unmasked_out(cfg, p, q.reshape(x.shape[0], 1, cfg.num_heads, cfg.head_dim), ck, cv)
+
+
 def init_kv_cache(
     cfg: ModelConfig, batch: int, length: int, dtype: torch.dtype, device: torch.device
 ) -> Dict[str, torch.Tensor]:
@@ -185,9 +221,12 @@ def attn_decode(
     """One-token decode. x: (B, 1, d); positions: (B,) absolute position of
     the new token.  ``rolling=True`` treats the cache as a circular buffer of
     width W; otherwise it is a linear cache of capacity >= positions+1.
-    Returns the output and a new cache (the old one is not written)."""
+    Returns the output and a new cache (the old one is not written).
+    Cross-attention (``encoder_out`` given) projects the encoder's K/V here
+    and returns the cache as it came."""
     if encoder_out is not None:
-        raise NotImplementedError(_CROSS)
+        q, k, v = _project_qkv(cfg, p, x, encoder_out)
+        return _unmasked_out(cfg, p, q, k, v), cache
     q, k, v = _project_qkv(cfg, p, x, x)  # (B,1,*,hd)
     if cfg.use_rope:
         q = apply_rope(q, positions[:, None], cfg.rope_theta)

@@ -1,0 +1,132 @@
+"""Mixture-of-Experts FFN: the port of ``repro.models.moe``.
+
+Shared + routed experts with capacity-dropped top-k routing.  Experts are
+stacked on a leading E axis; the router is kept in fp32 whatever the model
+dtype.  The reference dispatches and combines with one-hot einsums over
+(token, expert, slot); here the same function is a scatter of each kept
+token into its expert's slot and a gather back:
+
+- dispatch: each (expert, slot) holds at most one token, so the one-hot
+  sum has a single nonzero term and the scatter is exact;
+- combine: each token adds its k experts' outputs, each times its gate
+  rounded to the model dtype, in fp32, and rounds once (what XLA's bf16
+  einsum does; adding k bf16 terms in bf16 would be another function).
+
+The expert products are batched matmuls (``torch.bmm``), outside any
+kernel, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import Params, apply_mlp, dense_init, init_mlp
+
+GROUP_SIZE = 512
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
+    """One layer's experts, drawn from ``generator`` on its device: each
+    (E, d, ff) stack drawn whole in fp32, then cast."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    dev = generator.device
+
+    def stack(rows: int, cols: int) -> torch.Tensor:
+        w = torch.randn(E, rows, cols, generator=generator, device=dev, dtype=torch.float32)
+        return (w * (1.0 / math.sqrt(rows))).to(dtype)
+
+    p: Params = {
+        "router": dense_init(generator, d, E, torch.float32),  # router kept fp32
+        "w_gate": stack(d, ff),
+        "w_up": stack(d, ff),
+        "w_down": stack(ff, d),
+    }
+    if cfg.num_shared_experts > 0:
+        p["shared"] = init_mlp(generator, d, ff * cfg.num_shared_experts, "silu", dtype)
+    return p
+
+
+class Routing(NamedTuple):
+    """Routing of x (B, S, d) in ``ng`` groups of ``G`` tokens, ``C`` slots
+    per expert and group.  Per token and choice j < k: ``top_idx`` (B, ng,
+    G, k) the expert, ``top_vals`` its renormalised probability (fp32),
+    ``slot`` its slot in the expert (0 where dropped) and ``keep`` whether
+    it got one; and the aux loss (fp32)."""
+
+    G: int
+    ng: int
+    C: int
+    top_idx: torch.Tensor
+    top_vals: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    aux: torch.Tensor
+
+
+def group_shape(cfg: ModelConfig, S: int) -> Tuple[int, int, int]:
+    """(G, ng, C): groups of GROUP_SIZE along the sequence (one group when
+    S is not a multiple), and capacity min(G, ceil(k G / E * cf))."""
+    G = min(GROUP_SIZE, S)
+    if S % G:
+        G = S
+    C = max(1, int(math.ceil(cfg.experts_per_token * G / cfg.num_experts * cfg.capacity_factor)))
+    return G, S // G, min(C, G)
+
+
+def route(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Routing:
+    """The reference's routing: fp32 router logits and softmax, top-k of the
+    probabilities (the lower index first on a tie, as ``lax.top_k``: a
+    stable descending sort), renormalised; capacity taken in token order by
+    the running count of each expert within its group."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    G, ng, C = group_shape(cfg, S)
+    logits = x.reshape(B, ng, G, d).float() @ p["router"]  # (B, ng, G, E)
+    probs = torch.softmax(logits, dim=-1)
+    sorted_vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_vals, top_idx = sorted_vals[..., :k], order[..., :k]
+    top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+    mask = torch.zeros_like(probs).scatter_(-1, top_idx, 1.0)  # (B, ng, G, E) in {0, 1}
+    # Switch-style load-balance loss
+    aux = torch.mean(mask.mean(dim=2) * probs.mean(dim=2)) * (E * E) / k
+    pos_in_exp = torch.cumsum(mask, dim=2) * mask - 1.0
+    pos = torch.gather(pos_in_exp, -1, top_idx)  # (B, ng, G, k)
+    keep = (pos >= 0) & (pos < C)
+    slot = torch.where(keep, pos, 0.0).long()
+    return Routing(G, ng, C, top_idx, top_vals, slot, keep, aux)
+
+
+def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
+    """Gated-silu expert MLPs: xe (E, N, d) -> (E, N, d)."""
+    h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    return torch.bmm(h, p["w_down"])
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux loss fp32).  Tokens past an expert's
+    capacity in their group are dropped from that expert."""
+    B, S, d = x.shape
+    E = cfg.num_experts
+    r = route(cfg, p, x)
+    G, ng, C = r.G, r.ng, r.C
+    xg = x.reshape(B, ng, G, d)
+    # dispatch: kept (b, g, t, j) -> expert top_idx, slot; one token per slot
+    bi, gi, ti, ji = torch.nonzero(r.keep, as_tuple=True)
+    ei, ci = r.top_idx[bi, gi, ti, ji], r.slot[bi, gi, ti, ji]
+    xe = x.new_zeros(E, B, ng, C, d)
+    xe[ei, bi, gi, ci] = xg[bi, gi, ti]
+    ye = _experts(p, xe.reshape(E, B * ng * C, d)).reshape(E, B, ng, C, d)
+    # combine: each token's k outputs times its gates in the model dtype,
+    # added in fp32, rounded once
+    b_all = torch.arange(B, device=x.device)[:, None, None, None]
+    g_all = torch.arange(ng, device=x.device)[None, :, None, None]
+    picked = ye[r.top_idx, b_all, g_all, r.slot]  # (B, ng, G, k, d)
+    gates = torch.where(r.keep, r.top_vals, 0.0).to(x.dtype).float()
+    y = torch.einsum("bgtkd,bgtk->bgtd", picked.float(), gates).to(x.dtype).reshape(B, S, d)
+    if cfg.num_shared_experts > 0:
+        y = y + apply_mlp(p["shared"], x, "silu")
+    return y, r.aux

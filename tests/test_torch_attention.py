@@ -198,13 +198,43 @@ def test_attn_forward_routes_agree_in_bf16(layer):
     torch.testing.assert_close(a.float(), b.float(), rtol=0.05, atol=0.05)
 
 
-def test_attn_forward_cross_attention_raises(layer):
-    _, cfg, _, p = layer
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="whisper"):
-        attention.attn_forward(cfg, p, x, torch.arange(4), encoder_out=x)
-    with pytest.raises(NotImplementedError, match="whisper"):
-        attention.attn_decode(cfg, p, x[:, :1], {}, torch.zeros(1, dtype=torch.long), encoder_out=x)
+@pytest.mark.parametrize("s", [12, 1024])  # 1024: the plain route's q-chunked branch
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_attn_forward_cross_attention_matches(layer, s, use_kernel, monkeypatch):
+    """Cross-attention (queries over s decoder tokens, keys and values over
+    40 encoder frames, no RoPE on them, no mask) against the JAX package's;
+    the kernel route takes the plain form here, since no kernel computes
+    it.  The cached form (``cross_kv`` once, ``cross_decode_cached`` per
+    token) and ``attn_decode(encoder_out=...)`` give each token's row."""
+    jcfg, cfg, jp, p = layer
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, s, cfg.d_model), dtype=np.float32) * 0.5
+    enc = rng.standard_normal((2, 40, cfg.d_model), dtype=np.float32) * 0.5
+    pos = np.arange(s, dtype=np.int32)
+    want = jax.jit(lambda p_, x_, e_: jattn.attn_forward(jcfg, p_, x_, jnp.asarray(pos), encoder_out=e_))(
+        jp, jnp.asarray(x), jnp.asarray(enc)
+    )
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("cross-attention reached swa_attention")
+
+    monkeypatch.setattr(attention.kops, "swa_attention", no_kernel)
+    got = attention.attn_forward(
+        cfg, p, torch.from_numpy(x), torch.from_numpy(pos).long(), encoder_out=torch.from_numpy(enc),
+        use_kernel=use_kernel,
+    )
+    assert got.shape == (2, s, cfg.d_model)
+    assert_close(got, want, FP32_TOL)
+    ck, cv = attention.cross_kv(cfg, p, torch.from_numpy(enc))
+    jck, jcv = jattn.cross_kv(jcfg, jp, jnp.asarray(enc))
+    assert_close(ck, jck, FP32_TOL)
+    assert_close(cv, jcv, FP32_TOL)
+    for t in (0, s - 1):
+        xt = torch.from_numpy(x[:, t : t + 1])
+        cached = attention.cross_decode_cached(cfg, p, xt, ck, cv)
+        direct, cache = attention.attn_decode(cfg, p, xt, {}, torch.full((2,), t), encoder_out=torch.from_numpy(enc))
+        assert cache == {}
+        for y in (cached, direct):
+            torch.testing.assert_close(y[:, 0], got[:, t], rtol=FP32_TOL, atol=FP32_TOL)
 
 
 @pytest.mark.parametrize("rolling,width", [(False, 40), (True, 16)])

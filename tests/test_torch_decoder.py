@@ -27,7 +27,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from _torch_zoo import no_drop  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import list_configs as jlist_configs  # noqa: E402
 from repro.configs import reduced as jreduced  # noqa: E402
 from repro.launch import steps as jsteps  # noqa: E402
 from repro.models import decoder as jdecoder  # noqa: E402
@@ -166,7 +168,8 @@ def test_params_layer_order_follows_block_period():
 def test_configs_match_reference():
     """The port's own copies of the configs, their reduced variants and
     their parameter counts equal the reference's, field for field."""
-    assert list_configs() == ("mamba2-1.3b", "starcoder2-3b")
+    assert list_configs() == jlist_configs()
+    assert len(list_configs()) == 10
     for name in list_configs():
         for full in (False, True):
             j = jget_config(name)
@@ -185,29 +188,6 @@ def test_configs_match_reference():
     # term for term the reference's, which counts three d x ff matrices for
     # StarCoder2's two-matrix gelu MLP (the model has 3,180,905,472 elements)
     assert get_config("starcoder2-3b").param_count() == 4_313_084_928
-
-
-@pytest.mark.parametrize(
-    "changes,match",
-    [
-        # a dense transformer without RoPE (mamba2's use_rope=False): learned positions
-        (dict(ssm_state=0, num_heads=4, num_kv_heads=4), "attention"),
-        (dict(attn_period=2, attn_offset=1), "attention"),  # hybrid
-        (dict(ssm_state=0, num_heads=4, num_kv_heads=4, use_rope=True, num_experts=4, experts_per_token=2,
-              d_ff=128), "MLP"),  # MoE on a dense transformer
-        (dict(num_experts=4, experts_per_token=2, d_ff=128), "MoE"),
-        (dict(is_encoder_decoder=True, num_encoder_layers=2), "encoder"),
-    ],
-)
-def test_unported_layer_kinds_raise(changes, match):
-    cfg = dataclasses.replace(reduced(get_config("mamba2-1.3b")), **changes)
-    for call in (
-        lambda: decoder.init_params(cfg, device="cpu"),
-        lambda: decoder.init_cache(cfg, 1, 8, device="cpu"),
-        lambda: decoder.forward_logits(cfg, {}, torch.zeros(1, 4, dtype=torch.long)),
-    ):
-        with pytest.raises(NotImplementedError, match=f"(?s){match}.*ROADMAP"):
-            call()
 
 
 @pytest.mark.parametrize(
@@ -233,16 +213,65 @@ def test_attention_and_mlp_layer_kinds_run(changes):
     torch.testing.assert_close(prefill, logits, rtol=1e-4, atol=1e-4)
 
 
-def test_unported_inputs_raise():
-    cfg = reduced(get_config("mamba2-1.3b"))
-    params = decoder.init_params(cfg, device="cpu")
-    tokens = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decoder.forward_logits(cfg, params, tokens, prefix_embeddings=torch.zeros(1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decoder.forward_logits(cfg, params, tokens, encoder_frames=torch.zeros(1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.decoder_params_from_reference({"pos_embed": np.zeros((4, 4)), "blocks": ()}, cfg, device="cpu")
+@pytest.mark.parametrize(
+    "changes",
+    [
+        # a dense transformer without RoPE (mamba2's use_rope=False): learned positions
+        dict(ssm_state=0, num_heads=4, num_kv_heads=4),
+        # the hybrid: layer 0 SSM, layer 1 attention (no positions)
+        dict(attn_period=2, attn_offset=1, num_heads=4, num_kv_heads=4),
+        # MoE on a dense transformer
+        dict(ssm_state=0, num_heads=4, num_kv_heads=4, use_rope=True, num_experts=4, experts_per_token=2, d_ff=128),
+        # MoE on SSM layers
+        dict(num_experts=4, experts_per_token=2, d_ff=128),
+        # an encoder-decoder: SSM encoder and decoder, cross-attention
+        dict(is_encoder_decoder=True, num_encoder_layers=2, encoder_seq=16, num_heads=4, num_kv_heads=4),
+    ],
+    ids=["learned_positions", "hybrid", "moe_dense", "moe_ssm", "encoder_decoder"],
+)
+def test_once_refused_layer_kinds_run(changes):
+    """The layer kinds the port once refused (learned positions, the hybrid
+    interleave, MoE, the encoder-decoder) build, prefill and decode, and
+    the prefill's last logits equal the decoded ones.  The configurations
+    are the refused ones, with the attention heads that mamba2's config
+    (which has none) lacks where a layer attends; MoE runs at
+    capacity_factor E / k, so that the prefill drops nothing, as the decode
+    step never does."""
+    cfg = no_drop(dataclasses.replace(reduced(get_config("mamba2-1.3b")), **changes))
+    params = decoder.init_params(cfg, seed=1, device="cpu", max_seq=64)
+    learned_positions = cfg.is_encoder_decoder or (cfg.ssm_state == 0 and not cfg.use_rope)
+    assert ("pos_embed" in params) == decoder.has_pos_embed(cfg) == learned_positions
+    assert ("moe" in params["layers"][-1]) == (cfg.num_experts > 0)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 12))).long()
+    batch = {"tokens": tokens}
+    cache = decoder.init_cache(cfg, 1, 12, device="cpu", cross_cache=cfg.is_encoder_decoder)
+    if cfg.is_encoder_decoder:
+        batch["encoder_frames"] = torch.randn(1, cfg.encoder_seq, cfg.d_model, generator=torch.Generator().manual_seed(4))
+        enc = decoder.encode(cfg, params, batch["encoder_frames"])
+        cache = decoder.prefill_cross_cache(cfg, params, cache, enc)
+    for t in range(12):
+        logits, cache = decoder.decode_step(cfg, params, cache, tokens[:, t : t + 1], torch.full((1,), t))
+    for use_kernel in (True, False):
+        prefill = make_prefill_step(cfg, use_kernel=use_kernel)(params, batch)
+        torch.testing.assert_close(prefill, logits, rtol=1e-4, atol=1e-4)
+    _, aux = decoder.forward_logits(cfg, params, **batch)
+    assert (aux.item() > 0) == (cfg.num_experts > 0)
+
+
+def test_prefix_embeddings_run_and_are_stripped():
+    """Prefix embeddings go before the tokens (RoPE over all positions) and
+    are stripped before the head.  With the first 4 tokens' own embeddings
+    as the prefix, a dense RoPE stack over prefix + the other 6 tokens must
+    give the logits of the 10 tokens' last 6 positions."""
+    cfg = dataclasses.replace(reduced(get_config("mamba2-1.3b")), ssm_state=0, num_heads=4, num_kv_heads=4,
+                              use_rope=True)
+    params = decoder.init_params(cfg, seed=2, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 10))).long()
+    prefix = params["embed"][tokens[:, :4]]
+    got, _ = decoder.forward_logits(cfg, params, tokens[:, 4:], prefix_embeddings=prefix)
+    want, _ = decoder.forward_logits(cfg, params, tokens)
+    assert got.shape == (2, 6, cfg.vocab_size)
+    torch.testing.assert_close(got, want[:, 4:], rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
