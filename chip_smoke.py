@@ -96,6 +96,27 @@ result line):
    at the run's depth (MoE at capacity_factor E / k, where nothing drops;
    InternVL2 without a prefix) and in fp32 on a fresh 2-layer model at full
    width; (e) peak memory.
+12. LM training at ``qwen1.5-0.5b``'s published width (24 layers, d 1024,
+   vocab 151,936, bf16, random weights seed 0), after phase 11.  (a)
+   ``launch/train.py``'s round function with ``repro.launch.train``'s
+   defaults (8 clients, k = 2, 4 steps of 4 x 64 tokens, 3 rounds, mu
+   0.001, lr 0.05): each round exactly 72 swa_attention launches (the
+   probe's 24 and 24 for each of the k refreshes, all on the tensor-core
+   route), 1 vaoi_distance and 10 fedavg_reduce (290 leaves in runs of
+   32); round time, tokens trained per second, probe ms, peak memory, one
+   profiled round by ``lm.train.*`` range; the probe's features through
+   the kernel against the plain route (each attention call within
+   bf16_limit, the features within PROBE_FEATURE_RTOL, which the kernel
+   without its causal mask must exceed); Eq. 5 + 7 at (8, 151,936) and
+   the 290-leaf mean against their plain versions, timed beside
+   ``vector_norm`` and ``cat`` + ``mv``.  (b) ``make_train_step`` with
+   remat and the chunked CE (C = 256) at 4 x 2048: a warm-up and 5 timed
+   steps on one batch (the loss must fall), tokens/s, the share of bf16
+   peak by 6·N·T, peak memory, one profiled step; the chunked loss
+   against the full-logits loss.  (c) one mamba2-1.3b step at 1 x 2048.
+   Then one fp32 step of a 2-layer cut at full width on the card against
+   the same step on the CPU.  Phase 3 also holds swa_attention at the
+   probe's and the refresh's shapes (TRAIN_SWA_SHAPES).
 9a. The scenario axes at phase 4's width and depth: three runs that cover
    every harvest, stream and channel scenario (markov + drift + fading;
    hetero + arrival + erasure at p_loss 0.3, concentration 1.0; diurnal
@@ -151,6 +172,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -298,6 +320,38 @@ SCENARIO_CPU_EPOCHS = 3
 STEP_ATOL = 2e-4
 BATCH_SEEDS = (0, 1, 2)
 
+# Phase 12, LM training at qwen1.5-0.5b's published width (bf16).  12a: the
+# round function of launch/train.py with repro.launch.train's
+# defaults: 8 clients, k = 2, 4 steps of 4 x 64 tokens a round, 3 rounds, mu
+# 0.001, lr 0.05.  12b: make_train_step with remat and the chunked CE at
+# B x S = 4 x 2048 (C = 256: the 2047 predicted positions in 8 chunks, one
+# column of padding), a warm-up step then STEP_RUNS timed.  12c: one
+# mamba2-1.3b step at 1 x 2048 with remat.  The steps of 12b and 12c take
+# the rounds' lr on one batch.
+TRAIN_ARCH, SSM_TRAIN_ARCH = "qwen1.5-0.5b", "mamba2-1.3b"
+TRAIN_ROUNDS = dict(clients=8, k=2, steps_per_round=4, batch=4, seq=64, rounds=3, mu=0.001, lr=0.05)
+STEP_B, STEP_S, STEP_CHUNK, STEP_RUNS, SSM_STEP_B, SSM_STEP_S, SSM_STEP_RUNS = 4, 2048, 256, 5, 1, 2048, 2
+# Phase 3 holds swa_attention at the shapes phase 12 gives it: the batched
+# probe over N x batch = 32 sequences and a client's refresh over its 4
+# (B, H, Hkv, S, D, causal)
+TRAIN_SWA_SHAPES = {
+    "qwen1.5-0.5b probe": (32, 16, 16, 64, 64, True),
+    "qwen1.5-0.5b refresh": (4, 16, 16, 64, 64, True),
+}
+# Phase 12's checks.  One train step of a 2-layer fp32 cut at full width
+# (two_layer_config) on the card against the same step on the CPU, TF32 off:
+# loss within TRAIN_LOSS_RTOL relative, params within TRAIN_PARAM_ATOL (the
+# two sum in other orders; lr times a gradient's rounding is far below it).
+# The probe's features through swa_attention against the plain route: each
+# of its attention calls within bf16_limit of the plain version on that
+# call's inputs, and the feature rows within PROBE_FEATURE_RTOL of the
+# largest row's norm, which the kernel without its causal mask must exceed.
+# The chunked CE's loss against the full-logits loss on the same params and
+# batch within CE_CHUNK_RTOL (the same bf16 logits summed in other orders).
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6
+PROBE_FEATURE_RTOL = 0.05
+CE_CHUNK_RTOL = 1e-5
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -424,13 +478,15 @@ def ragged_leaf_tables(torch, g, dev):
     """Leaf tables of the sweep, one and two groups (SLAB_ROWS + OLD_ROWS
     rows), fp32 and bf16: column counts that are and are not multiples of 4,
     a leaf whose base is not 16-byte aligned (a contiguous view one element
-    into its storage), 32 leaves (the table's most).  Every fourth weight is
+    into its storage), 32 leaves (one launch's most) and 70 (three launches,
+    runs whose slices start off a 16-byte boundary).  Every fourth weight is
     0 and each group's weights sum to 1; in the two-group tables each leaf
     holds -Inf in a zero-weight slab row (column 0) and +Inf in a
     zero-weight old row (its last column), whose columns must come out NaN.
     Yields (groups, dtype, NaN columns expected)."""
     layouts = [(1, 3, 10, 37, 4096), (4096, 10, 1280, 32, 845), (5, 2049, 7, 1000, 9),
-               tuple(int(c) for c in torch.randint(1, 3000, (32,), generator=g))]
+               tuple(int(c) for c in torch.randint(1, 3000, (32,), generator=g)),
+               tuple(int(c) for c in torch.randint(1, 3000, (70,), generator=g))]
     for dtype in (torch.float32, torch.bfloat16):
         for cols in layouts:
             for n_groups in (1, 2):
@@ -1342,15 +1398,13 @@ def phase_swa_kernel(torch, ref, kern_swa, dev):
     return row
 
 
-def phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev):
-    """Phase 3 (phase 11's shapes): swa_attention at every attention shape
-    the zoo's prefills give it, ssd_scan at jamba's, bf16 on the
-    tensor-core routes, each element within bf16_limit / ssd_bf16_limit of
-    the plain version on the same inputs; kernel, plain version and (for
-    attention) SDPA timed, bounds from this run's shapes."""
-    g = torch.Generator().manual_seed(5)
-    rows = {"swa_attention": [], "ssd_scan": []}
-    for arch, (b, h, hkv, s, d, causal) in ZOO_SWA_SHAPES.items():
+def swa_shape_rows(torch, ref, kern_swa, dev, g, shapes: dict) -> list:
+    """swa_attention at each of ``shapes`` ({label: (B, H, Hkv, S, D,
+    causal)}), bf16 on the tensor-core route, each element within bf16_limit
+    of the plain version on the same inputs; kernel, plain version and SDPA
+    timed, bounds from this run's shapes."""
+    rows = []
+    for arch, (b, h, hkv, s, d, causal) in shapes.items():
         q, k, v = swa_inputs(torch, g, b, h, hkv, s, d, torch.bfloat16, dev)
         tc = kern_swa.launches_tc
         got = kern_swa(q, k, v, causal=causal)
@@ -1376,8 +1430,20 @@ def phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev):
             "library_seq": lib_s, "library_failed_at_full_seq": lib_why,
         }
         log(json.dumps({"phase": "zoo_kernel_shape", **row}))
-        rows["swa_attention"].append(row)
+        rows.append(row)
         del q, k, v
+    return rows
+
+
+def phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev):
+    """Phase 3 (phase 11's and phase 12's shapes): swa_attention at every
+    attention shape the zoo's prefills and the training probe give it
+    (``swa_shape_rows``), and ssd_scan at jamba's, bf16 on the tensor-core
+    route, each element within ssd_bf16_limit of the plain version on the
+    same inputs, timed beside it, its bound from this run's shape."""
+    g = torch.Generator().manual_seed(5)
+    rows = {"swa_attention": swa_shape_rows(torch, ref, kern_swa, dev, g, {**ZOO_SWA_SHAPES, **TRAIN_SWA_SHAPES}),
+            "ssd_scan": []}
     b, s, nh, hp, ds, L = ZOO_SSD_SHAPE
     inputs = ssd_inputs(torch, g, b, s, nh, hp, ds, torch.bfloat16, dev)
     tc = kern_ssd.launches_tc
@@ -2171,6 +2237,241 @@ def profile_run(torch, run, dev, prefix, no_concat=()):
     }
 
 
+def feature_gap(torch, a, b) -> float:
+    """max_i ||a_i - b_i||_2 over max_i ||b_i||_2: two routes' probe features."""
+    return (torch.linalg.vector_norm(a - b, dim=-1).max() / torch.linalg.vector_norm(b, dim=-1).max()).item()
+
+
+def ulps_apart(torch, got, want) -> float:
+    """max |got - want| in units of want's fp32 spacing (0 where they are equal)."""
+    spacing = torch.nextafter(want.abs(), torch.tensor(float("inf"), device=want.device)) - want.abs()
+    return ((got - want).abs() / spacing).max().item()
+
+
+def train_step_timed(torch, step, params, batch, runs):
+    """A warm-up step from ``params`` on ``batch``, then ``runs`` more, each
+    from the last one's params on the same batch, on the host clock ended by
+    synchronize.  Returns (losses of all the steps, the timed steps' ms)."""
+    loss, p = step(params, batch)
+    torch.cuda.synchronize()
+    losses, times = [loss.item()], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        loss, p = step(p, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    return losses, times
+
+
+def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
+    """Phase 12: LM training at full width on the card.  12a the training
+    round function, counted and timed, with its probe, its mean and its
+    Eq. 5 + Eq. 7 held to their plain versions; 12b the train step at width;
+    12c a Mamba2 step; a 2-layer fp32 step held to the CPU's.  Returns the
+    launch counts of 12a and the kernel rows at its shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_dataset
+    from repro_torch.kernels.fedavg_reduce import MAX_LEAVES
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import run_rounds
+    from repro_torch.models import decoder
+
+    torch.cuda.empty_cache()
+    cfg, d = get_config(TRAIN_ARCH), TRAIN_ROUNDS
+    g = torch.Generator().manual_seed(0)
+    data = make_token_dataset(g, d["clients"], d["batch"] * d["steps_per_round"], d["seq"], cfg.vocab_size)
+    data = data["tokens"].to(dev)
+    noise = torch.rand(d["rounds"], d["clients"], generator=g).mul_(1e-3).to(dev)
+    params = decoder.init_params(cfg, seed=0, device=dev, max_seq=d["seq"])
+    flat = decoder.flat_params(params)
+    n_params, n_leaves = sum(t.numel() for t in flat.values()), len(flat)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    per_round = {"vaoi_distance": 1, "fedavg_reduce": math.ceil(n_leaves / MAX_LEAVES), "ssd_scan": 0,
+                 "swa_attention": n_attn * (1 + d["k"])}  # the probe, then each client's refresh
+
+    # 12a: the training rounds, the main path of this phase
+    counts = []
+
+    def record(line):
+        counts.append(ops.launch_counts())
+        log(json.dumps({"phase": "p12a_round", "line": line}))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    final, history = run_rounds(cfg, params, data, noise, k=d["k"], mu=d["mu"], lr=d["lr"],
+                                steps_per_round=d["steps_per_round"], batch=d["batch"], log=record)
+    wall_s = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.route_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    deltas = [{k: c[k] - (counts[r - 1][k] if r else 0) for k in c} for r, c in enumerate(counts)]
+    off_tc = routes["swa_attention"]["launches_tc"] != launches["swa_attention"]
+    if any(delta != per_round for delta in deltas) or off_tc:
+        raise AssertionError(f"phase 12a launches per round {deltas} != {per_round}, or swa_attention off the "
+                             f"tensor cores ({routes['swa_attention']})")
+    if not (all(torch.isfinite(t).all().item() for t in decoder.flat_params(final).values())
+            and all(math.isfinite(h["loss"]) for h in history)):
+        raise AssertionError("phase 12a: non-finite params or losses")
+    tokens_per_round = d["k"] * d["steps_per_round"] * d["batch"] * d["seq"]
+    round_s = statistics.median(h["round_s"] for h in history[1:])
+    probe_toks = data[:, : d["batch"]].long()
+    probe_ms = time_ms(lambda: decoder.feature_vectors(cfg, final, probe_toks, use_kernel=True), iters=5, warmup=1)
+    round_profile = profile_run(torch, lambda: run_rounds(
+        cfg, final, data, noise[:1], k=d["k"], mu=d["mu"], lr=d["lr"], steps_per_round=d["steps_per_round"],
+        batch=d["batch"], log=lambda line: None), dev, "lm.")
+    log(json.dumps({
+        "phase": "p12a_rounds", "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "dtype": str(cfg.dtype), "params": n_params, "leaves": n_leaves, **d,
+        "rounds_s": [h["round_s"] for h in history], "round_s_median_1_2": round_s, "wall_s": wall_s,
+        "tokens_trained_per_round": tokens_per_round, "tokens_trained_per_s": tokens_per_round / round_s,
+        "probe_ms": probe_ms, "peak_gpu_mem_gb": peak_gb, "launches": launches, "launches_per_round": per_round,
+        "history": history, "power_limit": smi,
+    }))
+    log(json.dumps({"phase": "p12a_round_profile", **round_profile}))
+
+    # the probe's features through the kernel against the plain route
+    inner, calls = ops.swa_attention, []
+
+    def checked(q, k, v, window=0, causal=True):
+        out = inner(q, k, v, window=window, causal=causal)
+        calls.append(swa_error(out, ref.swa_attention_ref(q, k, v, window=window, causal=causal), q, k, v, window,
+                               causal))
+        return out
+
+    ops.swa_attention = checked
+    try:
+        v_kernel = decoder.feature_vectors(cfg, final, probe_toks, use_kernel=True)
+    finally:
+        ops.swa_attention = inner
+    v_plain = decoder.feature_vectors(cfg, final, probe_toks, use_kernel=False)
+    with attention_without_causal_mask(ops):
+        v_wrong = decoder.feature_vectors(cfg, final, probe_toks, use_kernel=True)
+    probe = {"phase": "p12a_probe_routes", "attention_calls": len(calls),
+             "max_ratio_to_bf16_limit": max(c[1] or 0.0 for c in calls), "max_abs_err": max(c[0] for c in calls),
+             "feature_gap": feature_gap(torch, v_kernel, v_plain), "feature_norm_max":
+             torch.linalg.vector_norm(v_plain, dim=-1).max().item(), "limit": PROBE_FEATURE_RTOL,
+             "mutant_feature_gap": feature_gap(torch, v_wrong, v_plain), "mu": d["mu"]}
+    log(json.dumps(probe))
+    if len(calls) != n_attn or not all(c[2] for c in calls) or probe["feature_gap"] > PROBE_FEATURE_RTOL:
+        raise AssertionError(f"phase 12a probe: the kernel route disagrees with the plain route: {probe}")
+    if probe["mutant_feature_gap"] <= PROBE_FEATURE_RTOL:
+        raise AssertionError(f"phase 12a probe: attention without its causal mask passes the limit: {probe}")
+
+    # the kernels at this phase's shapes: Eq. 5 + Eq. 7 over (8, V), the
+    # round's mean over 290 leaves in runs of 32
+    rows = {}
+    N, V = v_kernel.shape
+    h = torch.softmax(torch.randn(N, V, generator=torch.Generator(device=dev).manual_seed(4), device=dev), dim=-1)
+    age, q = torch.arange(N, dtype=torch.float32, device=dev), (torch.arange(N, device=dev) % 4 == 0).float()
+    m, new_age = ops.vaoi_distance(v_kernel, h, age, q, d["mu"])
+    m_ref, age_ref = ref.vaoi_distance_ref(v_kernel, h, age, q, d["mu"])
+    err = (m - m_ref).abs().max().item()
+    if err > 1e-6 * max(1.0, m_ref.abs().max().item()) or not torch.equal(new_age, age_ref):
+        raise AssertionError(f"vaoi_distance at ({N}, {V}) disagrees with its plain version: {err}")
+    t = interleaved_ms({
+        "kernel": lambda: ops.vaoi_distance(v_kernel, h, age, q, d["mu"]),
+        "plain": lambda: ref.vaoi_distance_ref(v_kernel, h, age, q, d["mu"]),
+        "library": lambda: torch.linalg.vector_norm(v_kernel - h, dim=-1),
+    }, EHFL_ITERS)
+    b_ms, b_by = bound(2 * N * V * 4 + 4 * N * 4, 3 * N * V)
+    rows["vaoi_distance"] = {"shape": [N, V], "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
+                             "library": "linalg.vector_norm(v - h, dim=-1)"}
+    del v_plain, v_wrong, h
+    shapes = {name: tuple(x.shape) for name, x in sorted(decoder.flat_params(final).items())}
+    gl = torch.Generator(device=dev).manual_seed(5)
+    leaves = [torch.randn((d["k"],) + s, generator=gl, device=dev).to(cfg.dtype) for s in shapes.values()]
+    table = [(leaves, torch.full((d["k"],), 1.0 / d["k"], device=dev))]
+    before = kern_fedavg.launches
+    got = ops.fedavg_reduce_leaves(table)
+    if kern_fedavg.launches - before != per_round["fedavg_reduce"]:
+        raise AssertionError(f"the leaf table over {n_leaves} leaves took {kern_fedavg.launches - before} launches")
+    ulps = ulps_apart(torch, got, ref.fedavg_reduce_leaves_ref(table))
+    if ulps > 1.0:
+        raise AssertionError(f"the leaf table over {n_leaves} leaves is {ulps} fp32 ulps from its plain version")
+    del got
+    w = table[0][1]
+    t = {"kernel": time_ms(lambda: ops.fedavg_reduce_leaves(table), iters=10, warmup=2),
+         "plain": time_ms(lambda: ref.fedavg_reduce_leaves_ref(table), iters=3, warmup=1),
+         "library": time_ms(lambda: torch.mv(torch.cat([x.reshape(d["k"], -1) for x in leaves], 1).T.float(), w),
+                            iters=5, warmup=1)}
+    b_ms, b_by = bound(d["k"] * n_params * 2 + 4 * d["k"] + 4 * n_params, 2 * d["k"] * n_params)
+    rows["fedavg_reduce"] = {"shape": [d["k"], n_leaves, n_params], "dtype": str(cfg.dtype), "max_ulps": ulps,
+                             "launches_per_call": per_round["fedavg_reduce"], "ms": t["kernel"],
+                             "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
+                             "library": "mv(cat(leaves).T.float(), w)"}
+    for name, row in rows.items():
+        log(json.dumps({"phase": "p12a_kernel_shape", "kernel": name, **row, "power_limit": smi}))
+    del leaves, table, final, params, flat, data, v_kernel
+    torch.cuda.empty_cache()
+
+    # 12b: the train step at width, remat and the chunked CE
+    params = decoder.init_params(cfg, seed=0, device=dev)
+    gb = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (STEP_B, STEP_S), generator=gb, device=dev)
+    batch = {"tokens": toks, "labels": toks}
+    step = make_train_step(cfg, lr=d["lr"], remat=True, ce_chunk=STEP_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = train_step_timed(torch, step, params, batch, STEP_RUNS)
+    peak_step = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(times)
+    tokens = STEP_B * STEP_S
+    with torch.no_grad():
+        full, _ = decoder.loss_fn(cfg, params, batch, ce_chunk=0)
+        chunked, _ = decoder.loss_fn(cfg, params, batch, ce_chunk=STEP_CHUNK)
+    ce_gap = abs(full.item() - chunked.item()) / abs(full.item())
+    row = {"phase": "p12b_train_step", "arch": cfg.name, "batch": STEP_B, "seq": STEP_S, "ce_chunk": STEP_CHUNK,
+           "remat": True, "lr": d["lr"], "runs_ms": times, "median_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "params": n_params, "bf16_peak_share_6ND": 6 * n_params * tokens / (step_ms / 1e3) / BF16_FLOPS,
+           "losses": losses, "loss_full_logits": full.item(), "loss_chunked": chunked.item(),
+           "ce_chunk_rel_gap": ce_gap, "limit": CE_CHUNK_RTOL, "peak_gpu_mem_gb": peak_step, "power_limit": smi}
+    log(json.dumps(row))
+    if not (all(math.isfinite(x) for x in losses) and losses[1] < losses[0]) or ce_gap > CE_CHUNK_RTOL:
+        raise AssertionError(f"phase 12b: the loss did not fall, is not finite, or the chunked CE parts from the "
+                             f"full logits: {row}")
+    log(json.dumps({"phase": "p12b_train_step_profile", **profile_run(torch, lambda: step(params, batch), dev, "lm.")}))
+    del params, batch, step
+    torch.cuda.empty_cache()
+
+    # 12c: one Mamba2 step at width
+    scfg = get_config(SSM_TRAIN_ARCH)
+    sparams = decoder.init_params(scfg, seed=0, device=dev)
+    stoks = torch.randint(0, scfg.vocab_size, (SSM_STEP_B, SSM_STEP_S), generator=gb, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = train_step_timed(torch, make_train_step(scfg, lr=d["lr"], remat=True), sparams,
+                                     {"tokens": stoks, "labels": stoks}, SSM_STEP_RUNS)
+    row = {"phase": "p12c_ssm_train_step", "arch": scfg.name, "batch": SSM_STEP_B, "seq": SSM_STEP_S, "remat": True,
+           "lr": d["lr"], "runs_ms": times, "median_ms": statistics.median(times), "losses": losses,
+           "params": sum(t.numel() for t in flat_tensors(sparams)),
+           "peak_gpu_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "power_limit": smi}
+    log(json.dumps(row))
+    if not (all(math.isfinite(x) for x in losses) and losses[1] < losses[0]):
+        raise AssertionError(f"phase 12c: the Mamba2 loss did not fall or is not finite: {row}")
+    del sparams
+    torch.cuda.empty_cache()
+
+    # one fp32 step of a 2-layer cut at full width, card against CPU
+    c2 = two_layer_config(torch, cfg)
+    p_cpu = decoder.init_params(c2, seed=0, device="cpu")
+    t2 = torch.randint(0, c2.vocab_size, (2, d["seq"]), generator=torch.Generator().manual_seed(7))
+    step = make_train_step(c2, lr=d["lr"], remat=False)
+    l_gpu, n_gpu = step(map_tensors(p_cpu, lambda x: x.to(dev)), {"tokens": t2.to(dev), "labels": t2.to(dev)})
+    l_cpu, n_cpu = step(p_cpu, {"tokens": t2, "labels": t2})
+    a, b = decoder.flat_params(n_gpu), decoder.flat_params(n_cpu)
+    param_err = max((a[k].cpu() - b[k]).abs().max().item() for k in b)
+    moved = max((b[k] - x).abs().max().item() for k, x in decoder.flat_params(p_cpu).items())
+    row = {"phase": "p12_gpu_vs_cpu_step", "layers": c2.num_layers, "dtype": "float32", "batch": 2, "seq": d["seq"],
+           "loss_gpu": l_gpu.item(), "loss_cpu": l_cpu.item(),
+           "loss_rel_err": abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item()), "param_max_abs_err": param_err,
+           "param_largest_move": moved, "limits": [TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL]}
+    log(json.dumps(row))
+    if row["loss_rel_err"] > TRAIN_LOSS_RTOL or param_err > TRAIN_PARAM_ATOL:
+        raise AssertionError(f"phase 12: the GPU train step parts from the CPU's: {row}")
+    return launches, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--epochs", type=int, default=10, help="depth T of the paper-width run (paper: 500)")
@@ -2287,6 +2588,11 @@ def main() -> int:
     zoo_launches = {spec.arch: phase_lm_serving(torch, dev, ops, smi, spec)[0] for spec in ZOO}
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
+    # --- phase 12: LM training at full width ---
+    t0 = time.perf_counter()
+    train_launches, train_rows = phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
     # --- phase 9a: the scenario axes at paper width ---
     torch.cuda.empty_cache()
     scenario_launches = phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi)
@@ -2332,17 +2638,20 @@ def main() -> int:
                route_launches=sc_routes["swa_attention"],
                bf16_bound_share=swa_row["bf16_bound_share"], fp32_route_ms=swa_row["fp32_route_ms"],
                bound_fp32_route_ms=swa_row["bound_fp32_route_ms"])
-    for e in (ssd, swa):  # phase 11: its prefills' launches, and phase 3's rows at their shapes
+    for e in (ssd, swa):  # phases 11 and 12: their launches, and phase 3's rows at their shapes
         e.update(launches_phase11={arch: n[e["name"]] for arch, n in zoo_launches.items() if n[e["name"]]},
-                 phase11_shapes=zoo_rows[e["name"]])
+                 phase11_shapes=[r for r in zoo_rows[e["name"]] if r["arch"] not in TRAIN_SWA_SHAPES],
+                 launches_phase12=train_launches[e["name"]],
+                 phase12_shapes=[r for r in zoo_rows[e["name"]] if r["arch"] in TRAIN_SWA_SHAPES])
     ehfl = [
         entry("vaoi_distance", "src/repro_torch/csrc/vaoi_distance.cu",
               "src/repro/kernels/vaoi_distance.py:49", kresults["vaoi_distance"], launches),
         entry("fedavg_reduce", "src/repro_torch/csrc/fedavg_reduce.cu",
               "src/repro/kernels/fedavg_reduce.py:36", kresults["fedavg_reduce"], launches),
     ]
-    for e in ehfl:  # the launches of phase 9a's runs, 9b's batch and phase 10's fleets (per rank)
-        e.update(launches_scenarios=[c[e["name"]] for c in scenario_launches],
+    for e in ehfl:  # the launches of phase 9a's runs, 9b's batch, phase 10's fleets (per rank) and phase 12
+        e.update(launches_phase12=train_launches[e["name"]], phase12_shape=train_rows[e["name"]],
+                 launches_scenarios=[c[e["name"]] for c in scenario_launches],
                  launches_run_batch=batch_launches[e["name"]],
                  launches_fleet={k: [c[e["name"]] for c in v] if isinstance(v, list) else v[e["name"]]
                                  for k, v in fleet_launches.items()})

@@ -260,7 +260,7 @@ def init_carry(
     if params is None:
         params = backend.init(torch.Generator().manual_seed(seed), device)
     else:
-        params = {k: v.to(device=device, dtype=torch.float32) for k, v in params.items()}
+        params = {k: v.to(device) for k, v in params.items()}  # each leaf keeps its dtype (a bf16 LM stays bf16)
     processes = (cfg.harvest_process(), cfg.data_stream(backend.num_classes), cfg.channel_process())
     init_draws = shard_draws((draws or TorchDraws(seed)).init(cfg, backend.num_classes), off, n)
     state = [

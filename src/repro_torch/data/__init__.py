@@ -8,4 +8,5 @@ from repro_torch.data.stream import SCENARIOS as STREAM_SCENARIOS  # noqa: F401
 from repro_torch.data.synthetic import (  # noqa: F401
     dirichlet_label_partition,
     make_federated_dataset,
+    make_token_dataset,
 )

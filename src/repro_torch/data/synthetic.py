@@ -6,6 +6,8 @@ label distribution: the paper's non-IID protocol (§V).  Everything is drawn
 on the CPU from ``seed`` (a ``torch.Generator``, plus numpy's generator for
 the Dirichlet proportions, which ``torch.Generator`` cannot sample) and moved
 to ``device`` in one copy, so a CPU and a GPU run see the same data.
+``make_token_dataset`` is the LM clients' counterpart: Dirichlet mixtures
+of vocab topics, for at-scale FL training (``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -65,3 +67,28 @@ def make_federated_dataset(
     test_images = protos[test_labels] + noise * test_eps
     out = {"images": images, "labels": labels, "test_images": test_images, "test_labels": test_labels}
     return {k: v.to(device) for k, v in out.items()}
+
+
+def make_token_dataset(
+    generator: torch.Generator,
+    num_clients: int,
+    samples_per_client: int,
+    seq_len: int,
+    vocab_size: int,
+    alpha: float = 0.5,
+    num_topics: int = 16,
+) -> Dict[str, torch.Tensor]:
+    """Synthetic non-IID LM data, the reference's recipe: each token of the
+    vocab belongs to one of ``num_topics`` topics, each client mixes the
+    topics with Dirichlet(alpha) weights, and its sequences are drawn token
+    by token from the resulting distribution over the vocab.  Returns
+    ``{"tokens": (N, n, S) int32}`` on ``generator``'s device.  The
+    Dirichlet weights come from numpy's generator, seeded from
+    ``generator`` (``torch.Generator`` samples no Dirichlet)."""
+    topic_of_token = torch.randint(0, num_topics, (vocab_size,), generator=generator, device=generator.device)
+    seed = int(torch.randint(0, 2**62, (), generator=generator, device=generator.device))
+    client_topic = np.random.default_rng(seed).dirichlet(np.full(num_topics, alpha), size=num_clients)
+    token_probs = torch.as_tensor(client_topic, device=generator.device)[:, topic_of_token]  # (N, V) float64
+    token_probs = token_probs / token_probs.sum(dim=-1, keepdim=True)
+    tokens = torch.multinomial(token_probs, samples_per_client * seq_len, replacement=True, generator=generator)
+    return {"tokens": tokens.reshape(num_clients, samples_per_client, seq_len).to(torch.int32)}

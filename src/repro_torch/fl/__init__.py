@@ -1,1 +1,1 @@
-from repro_torch.fl.backend import cnn_backend  # noqa: F401
+from repro_torch.fl.backend import cnn_backend, lm_backend  # noqa: F401

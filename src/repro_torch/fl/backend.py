@@ -3,12 +3,15 @@
 Contract: ``grad_loss``/``feature``/``predict`` are pure per-client functions
 of (params, batch): the simulator batches them over clients with
 ``torch.func.vmap``, so they may hold no hidden state.  ``probe`` is the one
-batched function: one shared model over N clients' probe batches.
+batched function: one shared model over N clients' probe batches.  Params
+are a flat ``{name: tensor}`` dict, which the simulator stacks per client.
 """
 from __future__ import annotations
 
+import torch
 from torch.func import grad_and_value
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.cifar_cnn import CNNConfig
 from repro_torch.core.simulator import Backend
 from repro_torch.models import cnn
@@ -29,4 +32,61 @@ def cnn_backend(cfg: CNNConfig) -> Backend:
         predict=lambda p, x: cnn.predictions(cfg, p, x),
         feature_dim=cfg.num_classes,
         num_classes=cfg.num_classes,
+    )
+
+
+def lm_backend(model_cfg: ModelConfig) -> Backend:
+    """LM-as-client backend: tokens in, next-token loss, output-distribution
+    feature tap (the paper's proxy at modern scale).  'images' are token
+    sequences (N, n, S), which the simulator holds as float32 (exact below
+    2^24) and which are read back as int64; 'labels' are unused (the LM loss
+    is self-supervised).  The params are the decoder's, flat under dotted
+    names (``models.decoder.flat_params``), nested again inside each
+    function.  ``probe`` runs the shared model over all N probe batches in
+    one forward, its attention through the ``swa_attention`` kernel (scan
+    through ``ssd_scan``) on the card; ``grad_loss`` and ``feature`` run the
+    plain forms, which ``torch.func.vmap`` batches over the clients.
+
+    Raises for the archs whose forward ``vmap`` cannot batch: a routed stack
+    (``models/moe.py`` dispatches through ``nonzero``, whose output shape
+    depends on the data) and an encoder-decoder (its forward needs encoder
+    frames, which the simulator's batches do not carry; the reference's
+    ``lm_backend`` cannot run it either)."""
+    from repro_torch.models import decoder
+
+    if any(model_cfg.layer_moe(i) for i in range(model_cfg.num_layers)):
+        raise NotImplementedError(
+            f"{model_cfg.name} routes tokens to experts: models/moe.py dispatches through torch.nonzero, whose "
+            "data-dependent shape torch.func.vmap cannot batch over the simulator's clients"
+        )
+    if model_cfg.is_encoder_decoder:
+        raise ValueError(f"{model_cfg.name} is an encoder-decoder: its forward needs encoder frames")
+
+    def loss(p, toks, _labels):
+        toks = toks.long()
+        l, _ = decoder.loss_fn(model_cfg, decoder.nest_params(p), {"tokens": toks, "labels": toks})
+        return l
+
+    gv = grad_and_value(loss)
+
+    def grad_loss(p, toks, labels):
+        grads, l = gv(p, toks, labels)
+        return l, grads
+
+    def init(generator: torch.Generator, device: torch.device):
+        seed = int(torch.randint(0, 2**62, (), generator=generator))
+        return decoder.flat_params(decoder.init_params(model_cfg, seed, device))
+
+    def predict(p, toks):
+        logits, _ = decoder.forward_logits(model_cfg, decoder.nest_params(p), toks.long())
+        return torch.argmax(logits[:, -1], dim=-1)
+
+    return Backend(
+        init=init,
+        grad_loss=grad_loss,
+        feature=lambda p, toks: decoder.feature_vector(model_cfg, decoder.nest_params(p), toks.long()),
+        probe=lambda p, toks: decoder.feature_vectors(model_cfg, decoder.nest_params(p), toks.long(), use_kernel=True),
+        predict=predict,
+        feature_dim=model_cfg.vocab_size,
+        num_classes=model_cfg.vocab_size,
     )

@@ -12,7 +12,9 @@ two row groups (the compacted path's slab and its old-carrier stack), each
 a list of stacked (K, *shape) leaves in ``flatten``'s order (sorted names)
 and a (K,) fp32 weight vector, and leaf j fills the next cols_j columns of
 the (P,) output.  Both groups go in one launch with one fp32 accumulator
-each, added as acc_0 + acc_1, the rounding of two reduces and an add.
+each, added as acc_0 + acc_1, the rounding of two reduces and an add.  A
+launch's table holds up to 32 leaves; a larger model goes in runs of 32,
+one launch each.
 Each thread owns 4 columns of a leaf and reads them with one 16-byte (fp32)
 or 8-byte (bf16) load per row, 4 rows in flight; blocks of 64 threads under
 a 32-register budget keep all of the main path's ~3,300 blocks resident at
@@ -26,7 +28,8 @@ one-group, one-leaf case of :func:`fedavg_reduce_leaves`.  Both only launch
 the kernel: they take tensors on the current CUDA device and raise on
 anything else.  ``kernels.ops`` routes CPU tensors to the plain versions in
 ``kernels.ref``.  ``fedavg_reduce.launches`` counts launches and
-``fedavg_reduce.row_groups`` the row groups they reduced.
+``fedavg_reduce.row_groups`` the row groups they reduced (a group once per
+launch that reads it).
 """
 from __future__ import annotations
 
@@ -61,8 +64,8 @@ def check_leaves(groups: Sequence[Group]) -> Tuple[List[int], List[int], int]:
     if not 1 <= len(groups) <= MAX_GROUPS:
         raise ValueError(f"the kernel takes 1 to {MAX_GROUPS} row groups; got {len(groups)}")
     first = groups[0][0]
-    if not 1 <= len(first) <= MAX_LEAVES:
-        raise ValueError(f"the kernel takes 1 to {MAX_LEAVES} leaves; got {len(first)}")
+    if not first:
+        raise ValueError("the table has no leaves")
     dtype = first[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"leaves must be one of {_DTYPES}; got {dtype}")
@@ -98,22 +101,38 @@ def fedavg_reduce_leaves(groups: Sequence[Group]) -> torch.Tensor:
     stacked (K_g, *shape_j) tensors, shape_j shared by the groups, and its
     weights (K_g,) fp32.  -> (P,) fp32, P = Σ_j prod(shape_j): leaf j's
     Σ_g Σ_k w_g[k]·leaf_gj[k] flattened into the next prod(shape_j)
-    columns, the groups added in their order."""
+    columns, the groups added in their order.
+
+    One launch takes up to ``MAX_LEAVES`` leaves (the by-value table's
+    room), so a model with more (qwen1.5-0.5b's 290) goes in runs of
+    ``MAX_LEAVES``, each launch writing its own slice of the one output.  A
+    run whose slice does not start on a 16-byte boundary (the kernel's wide
+    stores assume one) is written to a buffer of its own and copied in."""
     cols, ptrs, index = check_leaves(groups)
     stream = build.launch_stream("fedavg_reduce", index)
     ng, nl = len(groups), len(cols)
     out = torch.empty(sum(cols), dtype=torch.float32, device=groups[0][1].device)
     if out.numel() == 0:
         return out
-    err = _launcher()(
-        ng, nl, (ctypes.c_void_p * (ng * nl))(*ptrs), (ctypes.c_void_p * ng)(*[w.data_ptr() for _, w in groups]),
-        (ctypes.c_int * ng)(*[w.shape[0] for _, w in groups]), (ctypes.c_int * nl)(*cols),
-        int(groups[0][0][0].dtype == torch.bfloat16), out.data_ptr(), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fedavg_reduce kernel launch failed: CUDA error {err}")
-    fedavg_reduce.launches += 1
-    fedavg_reduce.row_groups += ng
+    weights = (ctypes.c_void_p * ng)(*[w.data_ptr() for _, w in groups])
+    rows = (ctypes.c_int * ng)(*[w.shape[0] for _, w in groups])
+    is_bf16 = int(groups[0][0][0].dtype == torch.bfloat16)
+    off = 0
+    for j0 in range(0, nl, MAX_LEAVES):
+        run = range(j0, min(j0 + MAX_LEAVES, nl))
+        n = sum(cols[j] for j in run)
+        dst = out[off : off + n] if off % 4 == 0 else torch.empty_like(out[:n])
+        err = _launcher()(
+            ng, len(run), (ctypes.c_void_p * (ng * len(run)))(*[ptrs[g * nl + j] for g in range(ng) for j in run]),
+            weights, rows, (ctypes.c_int * len(run))(*[cols[j] for j in run]), is_bf16, dst.data_ptr(), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fedavg_reduce kernel launch failed: CUDA error {err}")
+        fedavg_reduce.launches += 1
+        fedavg_reduce.row_groups += ng
+        if off % 4:
+            out[off : off + n].copy_(dst)
+        off += n
     return out
 
 

@@ -46,7 +46,8 @@ def fedavg_reduce(msgs, weights):
 def fedavg_reduce_leaves(groups):
     """The same reduce read from the client leaves in place: one or two
     (stacked (K_g, ...) leaves, (K_g,) weights) groups -> (P,), leaf j in
-    the next prod(shape_j) columns, the groups added in order."""
+    the next prod(shape_j) columns, the groups added in order.  Any number
+    of leaves: the kernel takes them in runs of 32, one launch each."""
     # the kernel's wrapper checks every tensor of a table whose first weights are on the card
     if not (groups and groups[0][1].is_cuda) and _on_cpu(*(t for leaves, w in groups for t in (*leaves, w))):
         return ref.fedavg_reduce_leaves_ref(groups)

@@ -1,6 +1,9 @@
-"""Serving step functions: the port of ``repro.launch.steps``'s prefill
-and serve steps.
+"""Step functions of the training and serving entry points: the port of
+``repro.launch.steps``.
 
+train_step : one FL client's local SGD step on the LM objective (the
+             paper's BATCHTRAIN at modern scale): ``decoder.loss_fn`` under
+             autograd, on the plain forms (the kernels serve inference).
 prefill    : full-sequence forward, last-position logits (serving prefill),
              with the scan through the ``ssd_scan`` kernel and
              self-attention through the ``swa_attention`` kernel by
@@ -9,8 +12,7 @@ prefill    : full-sequence forward, last-position logits (serving prefill),
 serve_step : single-token decode against the SSM and KV caches (and an
              encoder-decoder's cross K/V planes, or ``encoder_out``).
 
-Both run under ``torch.inference_mode()``.  The train step waits for the
-training slice (ROADMAP queue 1 #12).
+Prefill and serve steps run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,33 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decoder
+from repro_torch.optim import sgd_update
+
+
+def make_train_step(
+    cfg: ModelConfig, lr: float = 0.01, remat: bool = True, ce_impl: str = "gather", ce_chunk: int = 0
+):
+    """``train_step(params, batch) -> (loss, new_params)``: the loss of
+    ``decoder.loss_fn`` (``remat``, ``ce_impl`` and ``ce_chunk`` passed on),
+    its gradient by ``torch.autograd.grad`` over every leaf of the param
+    tree, then one SGD step of ``lr`` (the update rounded to each leaf's
+    dtype).  ``torch.autograd`` and not ``torch.func``: the checkpoints of
+    ``remat`` and of the chunked CE use saved-tensor hooks, which the
+    function transforms do not take.  The loss comes back detached."""
+
+    def train_step(params, batch: Dict[str, torch.Tensor]):
+        flat = decoder.flat_params(params)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+        with torch.enable_grad():
+            loss, _ = decoder.loss_fn(
+                cfg, decoder.nest_params(leaves), batch, remat=remat, ce_impl=ce_impl, ce_chunk=ce_chunk
+            )
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        with torch.no_grad():
+            new = sgd_update(flat, dict(zip(leaves, grads)), lr)
+        return loss.detach(), decoder.nest_params(new)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, use_kernel: bool = True):

@@ -1,6 +1,5 @@
 """Shared model building blocks: initialisers, norms, RoPE, the MLP and the
-loss (the part of ``repro.models.common`` that the CNN client, the Mamba2
-stack and the attention stack need)."""
+cross-entropy losses (the port of ``repro.models.common``)."""
 from __future__ import annotations
 
 import math
@@ -99,9 +98,26 @@ def apply_mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     return h @ p["w_down"]
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token-level CE. logits (..., V) float; labels (...,) int."""
+def softmax_cross_entropy_per_token(
+    logits: torch.Tensor, labels: torch.Tensor, impl: str = "gather"
+) -> torch.Tensor:
+    """Per-token CE (...,), no mean: logsumexp of the fp32 logits less the
+    gold logit.  ``impl="gather"`` reads the gold logit with ``gather``;
+    ``impl="onehot"`` sums the logits under a mask of the label's column
+    (the reference's form for vocab-sharded logits).  The two are the same
+    function: the mask's sum has one nonzero term."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
-    return (logz - gold).mean()
+    if impl == "onehot":
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(labels.unsqueeze(-1) == cols, logits, 0.0).sum(dim=-1)
+    elif impl == "gather":
+        gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    else:
+        raise ValueError(f"impl must be 'gather' or 'onehot'; got {impl!r}")
+    return logz - gold
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, impl: str = "gather") -> torch.Tensor:
+    """Mean token-level CE. logits (..., V) float; labels (...,) int."""
+    return softmax_cross_entropy_per_token(logits, labels, impl).mean()

@@ -9,7 +9,12 @@ Params are a dict: ``embed``, ``final_norm``, ``lm_head`` (untied only),
 ``norm2`` and ``mlp`` or ``moe`` when ``d_ff > 0``), looped in Python.  An
 encoder-decoder adds ``enc_layers``, ``enc_pos_embed`` and
 ``enc_final_norm``.  The reference stacks layers in super-blocks of
-``cfg.block_period``; only ``checkpoint/convert.py`` sees that grouping.
+``cfg.block_period``; here that grouping shows only in
+``checkpoint/convert.py`` and in the checkpoints of ``remat``.
+
+Training (``loss_fn``, ``forward_hidden``) runs the plain forms under
+autograd, as the reference differentiates its plain ``jnp`` forms; the
+kernels serve inference (prefill, the feature taps).
 """
 from __future__ import annotations
 
@@ -18,13 +23,23 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssd as ssd_lib
-from repro_torch.models.common import Params, apply_mlp, apply_norm, embed_init, init_mlp, init_norm
+from repro_torch.models.common import (
+    Params,
+    apply_mlp,
+    apply_norm,
+    embed_init,
+    init_mlp,
+    init_norm,
+    softmax_cross_entropy,
+    softmax_cross_entropy_per_token,
+)
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -97,6 +112,44 @@ def init_params(
     return p
 
 
+def flat_params(params: Params) -> Dict[str, torch.Tensor]:
+    """The params as one flat dict of dotted names (``layers.3.attn.wq``,
+    ``final_norm.scale``): the form the simulator stacks per client."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix: str) -> None:
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            name = f"{prefix}{k}"
+            if isinstance(v, torch.Tensor):
+                out[name] = v
+            else:
+                walk(v, name + ".")
+
+    walk(params, "")
+    return out
+
+
+def nest_params(flat: Dict[str, torch.Tensor]) -> Params:
+    """Inverse of :func:`flat_params`: numeric parts of a name index lists."""
+    root: Dict = {}
+    for name, t in flat.items():
+        node = root
+        *parents, leaf = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return x @ head.T.to(cfg.dtype)
@@ -130,17 +183,19 @@ def _cross_residual(cfg: ModelConfig, p: Params, x: torch.Tensor, attend) -> tor
         return x + attend(p["cross"], h)
 
 
-def _run_stack(
+def _run_block(
     cfg: ModelConfig,
     layers: List[Params],
     x: torch.Tensor,
+    aux: torch.Tensor,
     positions: torch.Tensor,
     window: int,
     causal: bool,
     encoder_out: Optional[torch.Tensor],
     use_kernel: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    """One super-block of layers: x and the running aux loss through each
+    layer in order (the MoE layers add theirs)."""
     for p in layers:
         with record_function("lm.norm"):
             h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -159,6 +214,29 @@ def _run_stack(
     return x, aux
 
 
+def _run_stack(
+    cfg: ModelConfig,
+    layers: List[Params],
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    window: int,
+    causal: bool,
+    encoder_out: Optional[torch.Tensor],
+    use_kernel: bool,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layers in super-blocks of ``cfg.block_period``.  ``remat``
+    checkpoints each super-block (``torch.utils.checkpoint``, non-reentrant):
+    the backward pass recomputes its activations from its input, as the
+    reference's ``jax.checkpoint(body)``; the values are the same bits."""
+    period = cfg.block_period
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for b in range(0, len(layers), period):
+        args = (cfg, layers[b : b + period], x, aux, positions, window, causal, encoder_out, use_kernel)
+        x, aux = checkpoint(_run_block, *args, use_reentrant=False) if remat else _run_block(*args)
+    return x, aux
+
+
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
     """The encoder over (stubbed frontend) frames (B, S_enc, d): learned
     positions, a non-causal stack (its self-attention through the
@@ -173,25 +251,29 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, use_kernel: b
         return apply_norm(cfg.norm, params["enc_final_norm"], x, cfg.norm_eps)
 
 
-def forward_logits(
+def forward_hidden(
     cfg: ModelConfig,
     params: Params,
     tokens: torch.Tensor,
     prefix_embeddings: Optional[torch.Tensor] = None,
     encoder_frames: Optional[torch.Tensor] = None,
-    last_only: bool = False,
+    remat: bool = False,
     use_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits over the token positions (B, S, V), or (B, 1, V) with
-    ``last_only``; the MoE aux loss summed over layers, fp32).
-    ``prefix_embeddings`` (B, P, d) go before the tokens (positions and RoPE
-    run over S + P) and are stripped before the head.  An encoder-decoder
-    needs ``encoder_frames``.  ``use_kernel`` is passed to every
-    ``ssd_forward`` and ``attn_forward``: True sends the scan to
-    ``kernels.ops.ssd_scan`` and self-attention to
-    ``kernels.ops.swa_attention``; False computes exactly the reference
-    decoder's plain forms.  Decoder attention is causal, within
-    ``cfg.sliding_window`` when it is set."""
+    """Final-norm hidden states over the token positions (B, S, d), the
+    prefix positions cut off, and the MoE aux loss summed over layers (fp32):
+    the tensor before the head, which the chunked CE of :func:`loss_fn`
+    reads.  ``prefix_embeddings`` (B, P, d) go before the tokens (positions
+    and RoPE run over S + P).  An encoder-decoder needs ``encoder_frames``.
+    ``use_kernel`` is passed to every ``ssd_forward`` and ``attn_forward``:
+    True sends the scan to ``kernels.ops.ssd_scan`` and self-attention to
+    ``kernels.ops.swa_attention`` (inference only: the kernels refuse
+    ``requires_grad``); False computes exactly the reference decoder's plain
+    forms.  ``remat`` checkpoints each super-block (:func:`_run_stack`).
+    The reference's ``unroll`` switch (a Python loop instead of
+    ``lax.scan``, so that XLA's cost analysis sees every layer) has no
+    counterpart: the layers here are always a Python loop.  Decoder
+    attention is causal, within ``cfg.sliding_window`` when it is set."""
     if cfg.is_encoder_decoder and encoder_frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass encoder_frames")
     S = tokens.shape[1]
@@ -205,14 +287,136 @@ def forward_logits(
             x = x + params["pos_embed"][None, : S + P, :].to(cfg.dtype)
     positions = torch.arange(S + P, device=x.device)
     encoder_out = encode(cfg, params, encoder_frames, use_kernel) if cfg.is_encoder_decoder else None
-    x, aux = _run_stack(cfg, params["layers"], x, positions, cfg.sliding_window, True, encoder_out, use_kernel)
+    x, aux = _run_stack(
+        cfg, params["layers"], x, positions, cfg.sliding_window, True, encoder_out, use_kernel, remat
+    )
     with record_function("lm.head"):
         x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-        x = x[:, P:, :]
+        return x[:, P:, :], aux
+
+
+def forward_logits(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    prefix_embeddings: Optional[torch.Tensor] = None,
+    encoder_frames: Optional[torch.Tensor] = None,
+    last_only: bool = False,
+    use_kernel: bool = False,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits over the token positions (B, S, V), or (B, 1, V) with
+    ``last_only``; the MoE aux loss summed over layers, fp32): the head
+    over :func:`forward_hidden`, whose arguments these are."""
+    x, aux = forward_hidden(cfg, params, tokens, prefix_embeddings, encoder_frames, remat, use_kernel)
+    with record_function("lm.head"):
         if last_only:
             x = x[:, -1:, :]
-        logits = _logits(cfg, params, x)
-    return logits, aux
+        return _logits(cfg, params, x), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss (training)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_ce(x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, head: torch.Tensor, impl: str) -> torch.Tensor:
+    """Σ w · CE over one chunk of positions: x (B, C, d), labels (B, C), w (C,)."""
+    return torch.sum(softmax_cross_entropy_per_token(x @ head, labels, impl) * w[None, :])
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    aux_weight: float = 0.01,
+    remat: bool = False,
+    ce_impl: str = "gather",
+    ce_chunk: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE of ``batch["tokens"]`` (B, S) against
+    ``batch["labels"]`` shifted by one, plus ``aux_weight`` times the MoE
+    aux loss; ``batch`` may hold ``prefix_embeddings`` and
+    ``encoder_frames``.  Returns (loss, {"ce", "moe_aux"}).
+
+    ``ce_chunk = 0`` takes the CE over the full (B, S - 1, V) logits.
+    ``ce_chunk = C > 0`` evaluates the head and the CE C positions at a
+    time, each chunk checkpointed, so the full logits (and their fp32
+    copies) never exist and the backward pass recomputes each chunk's: the
+    S - 1 positions are padded to a multiple of C with copies of the last
+    column, weighted 0, and the sum is divided by B · (S - 1).  Plain forms
+    throughout (no kernel: the loss is differentiated)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    inputs = dict(prefix_embeddings=batch.get("prefix_embeddings"), encoder_frames=batch.get("encoder_frames"))
+    if ce_chunk <= 0:
+        logits, aux = forward_logits(cfg, params, tokens, remat=remat, **inputs)
+        ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:], impl=ce_impl)
+        return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
+    x, aux = forward_hidden(cfg, params, tokens, remat=remat, **inputs)
+    head = (params["embed"] if cfg.tie_embeddings else params["lm_head"]).T.to(cfg.dtype)
+    xs, ls = x[:, :-1], labels[:, 1:]
+    B, Sm1, d = xs.shape
+    C = ce_chunk
+    pad = (-Sm1) % C
+    if pad:  # pad with a repeat of the last column, weight it zero
+        xs = torch.cat([xs, xs[:, -1:].expand(B, pad, d)], dim=1)
+        ls = torch.cat([ls, ls[:, -1:].expand(B, pad)], dim=1)
+    w = torch.cat([torch.ones(Sm1, device=x.device), torch.zeros(pad, device=x.device)])
+    with record_function("lm.ce"):
+        totals = [
+            checkpoint(_chunk_ce, xs[:, i : i + C], ls[:, i : i + C], w[i : i + C], head, ce_impl, use_reentrant=False)
+            for i in range(0, Sm1 + pad, C)
+        ]
+        ce = torch.stack(totals).sum() / (B * Sm1)
+    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Feature tap (the paper's proxy, at modern scale)
+# ---------------------------------------------------------------------------
+
+
+def feature_vectors(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    prefix_embeddings: Optional[torch.Tensor] = None,
+    encoder_frames: Optional[torch.Tensor] = None,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """The probe: one shared model over N clients' batches in one forward.
+    tokens (N, b, S) (prefix embeddings (N, b, P, d), frames (N, b, S_enc,
+    d)) -> (N, V), row i :func:`feature_vector` of client i's batch: the
+    softmax of the fp32 logits, averaged over batch and positions.  Runs
+    under ``inference_mode``; ``use_kernel`` as in :func:`forward_hidden`."""
+    N, b = tokens.shape[:2]
+
+    def rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return None if t is None else t.reshape((N * b,) + t.shape[2:])
+
+    with torch.inference_mode():
+        logits, _ = forward_logits(
+            cfg, params, rows(tokens), rows(prefix_embeddings), rows(encoder_frames), use_kernel=use_kernel
+        )
+        probs = torch.softmax(logits.float(), dim=-1)
+        return probs.reshape((N, -1, probs.shape[-1])).mean(dim=1)
+
+
+def feature_vector(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    prefix_embeddings: Optional[torch.Tensor] = None,
+    encoder_frames: Optional[torch.Tensor] = None,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """The feature z of Eq. (5)/(6) for an LM: the softmax-normalised output
+    distribution of the fp32 logits over a small batch (B, S), averaged over
+    batch and positions -> (V,).  One forward, under ``inference_mode``."""
+    def one(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return None if t is None else t[None]
+
+    return feature_vectors(cfg, params, tokens[None], one(prefix_embeddings), one(encoder_frames), use_kernel)[0]
 
 
 # ---------------------------------------------------------------------------

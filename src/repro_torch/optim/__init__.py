@@ -1,1 +1,1 @@
-from repro_torch.optim.sgd import sgd_update  # noqa: F401
+from repro_torch.optim.sgd import adamw_init, adamw_update, sgd_update  # noqa: F401

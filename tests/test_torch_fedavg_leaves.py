@@ -10,7 +10,8 @@ plain version (``kernels.ref.fedavg_reduce_leaves_ref``) carries the port's
 numpy-seeded inputs, through the reference's plain per-leaf sums and
 through its ``fedavg_reduce`` Pallas kernel in interpret mode, over the
 reduced CNN's 18 leaves and a ragged layout (leaf column counts 1, 3, 10,
-37 and 4096, so that rows of 4, 40 and 148 bytes are not 16-byte aligned).
+37 and 4096, so that rows of 4, 40 and 148 bytes are not 16-byte aligned),
+and tables of 33 and 70 leaves, more than one launch takes.
 Tolerances: fp32 1e-6 (the two sides sum the same products in another
 order); bf16 0.05 (the reference sums bf16 products where the port
 accumulates in fp32; tests/test_kernels.py's bf16 tolerance).  An all-zero
@@ -51,7 +52,17 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def many_leaves(n):
+    """``n`` leaves cycling through ragged column counts (1, 3, 10, 37, 64,
+    8): more than one launch's table of 32, and runs whose output slices
+    start off a 16-byte boundary."""
+    shapes = [(1,), (3,), (10,), (37,), (4, 16), (8,)]
+    return {f"l{j:03d}": shapes[j % len(shapes)] for j in range(n)}
+
+
 def layout(name):
+    if name.startswith("many"):
+        return many_leaves(int(name[4:]))
     if name == "cnn":
         params = init_params(reduced_cnn(), torch.Generator().manual_seed(0), torch.device("cpu"))
         return {k: tuple(v.shape) for k, v in params.items()}
@@ -139,6 +150,27 @@ def test_masked_mean_one_group_matches_reference(name, dtype, path):
     assert_trees_close(got, jax_masked(stack, mask, fb, dtype, path), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("name", ["many33", "many70"])
+def test_more_than_32_leaves_match_reference(name, groups, dtype):
+    """Tables of 33 and 70 leaves (an LM's params run to hundreds: qwen1.5-0.5b
+    has 290) through the plain version, one group (``_masked_mean``) and two
+    (``_compact_mean``), against the JAX package's plain FedAvg."""
+    if groups == 2:
+        case = compact_case(9, name, dtype)
+        got, want = torch_compact(*case, dtype), jax_compact(*case, dtype, "plain")
+    else:
+        rng = np.random.default_rng(10)
+        shapes = layout(name)
+        stack, fb = stacked(rng, shapes, N, dtype), {k: v[0] for k, v in stacked(rng, shapes, 1, dtype).items()}
+        mask = np.arange(N) % 4 == 1
+        got = tsim._masked_mean(to_torch(stack, dtype), torch.from_numpy(mask), to_torch(fb, dtype))
+        want = jax_masked(stack, mask, fb, dtype, "plain")
+    assert len(got) == int(name[4:]) and all(v.dtype == TORCH_DTYPES[dtype] for v in got.values())
+    assert_trees_close(got, want, TOL[dtype])
+
+
 @pytest.mark.parametrize("name", ["cnn", "ragged"])
 def test_all_zero_masks_keep_the_fallback(name):
     slab, _, old, _, fb = compact_case(3, name, "float32")
@@ -195,7 +227,9 @@ def bad_tables():
         "no_groups": ([], ValueError),
         "three_groups": ([([f], w)] * 3, ValueError),
         "no_leaves": ([([], w)], ValueError),
-        "33_leaves": ([([f] * 33, w)], ValueError),
+        # more than a launch's 32 leaves is a table the wrapper takes in runs;
+        # a bad 33rd leaf must still refuse the table before any launch
+        "33_leaves": ([([f] * 32 + [b], w)], TypeError),
         "float16": ([([f.half()], w)], TypeError),
         "mixed_dtypes": ([([f, b], w)], TypeError),
         "weights_dtype": ([([f], w.double())], ValueError),
@@ -262,3 +296,22 @@ def test_compact_mean_on_gpu_matches_cpu(name, cuda_device):
     assert (fedavg_kernel.launches, fedavg_kernel.row_groups) == (before[0] + 1, before[1] + 2)
     for k in cpu:
         torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["many33", "many70"])
+def test_more_than_32_leaves_launch_in_runs_of_32(name, dtype, cuda_device):
+    """ceil(L / 32) launches for L leaves, each writing its slice of the
+    one output (runs that start off a 16-byte boundary through a buffer of
+    their own), against the plain version."""
+    slab, slab_mask, old, old_mask, _ = compact_case(11, name, dtype)
+    names = sorted(slab)
+    table = [([torch.from_numpy(g[k]).to(TORCH_DTYPES[dtype]).to(cuda_device) for k in names],
+              torch.from_numpy(m).float().to(cuda_device)) for g, m in ((slab, slab_mask), (old, old_mask))]
+    before = (fedavg_kernel.launches, fedavg_kernel.row_groups)
+    got = leaves_kernel(table)
+    torch.cuda.synchronize()
+    runs = math.ceil(len(names) / 32)
+    assert (fedavg_kernel.launches, fedavg_kernel.row_groups) == (before[0] + runs, before[1] + 2 * runs)
+    torch.testing.assert_close(got, ref.fedavg_reduce_leaves_ref(table), rtol=0, atol=1e-5)
