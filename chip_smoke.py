@@ -91,8 +91,8 @@ result line):
    token-expert choices dropped at the published capacity; (b) the plain
    route, logits within LOGITS_LIMITS, and the same prefill with the
    attention kernel's causal mask off, which must fail them; (c) 4 requests
-   of 128 prompt tokens through the serve step (whisper's after its cross
-   K/V cache is filled), then 16 greedy; (d) prefill against decode in bf16
+   of 32 prompt tokens (128 for the routed stacks) through the serve step
+   (whisper's after its cross K/V cache is filled), then 8 greedy; (d) prefill against decode in bf16
    at the run's depth (MoE at capacity_factor E / k, where nothing drops;
    InternVL2 without a prefix) and in fp32 on a fresh 2-layer model at full
    width; (e) peak memory.
@@ -117,6 +117,28 @@ result line):
    Then one fp32 step of a 2-layer cut at full width on the card against
    the same step on the CPU.  Phase 3 also holds swa_attention at the
    probe's and the refresh's shapes (TRAIN_SWA_SHAPES).
+13. EHFL with routed LM clients (``ROUTED_*``), after phase 12.  (a)
+   ``run_simulation`` with ``lm_backend`` for deepseek-moe-16b at its
+   published width (d 2048, 64 routed experts of d_ff 1408 plus 2 shared,
+   top-6, vocab 102,400, bf16, random weights seed 0), cut to 2 of 28
+   layers, 4 clients x 16 sequences of 64 tokens, k = 2, kappa = 4, 3
+   epochs: each epoch exactly one swa_attention launch per attention layer
+   (the probe, on the tensor-core route), one vaoi_distance at (4, 102,400)
+   and ceil((13 L + 3) / 32) fedavg_reduce launches (the leaf table);
+   steady epoch time, clients and tokens trained per second, probe ms, the
+   share of choices dropped at capacity, peak memory, one profiled epoch;
+   the EHFL kernels at these shapes against their plain versions; the MoE
+   dispatch at published width in fp32 under vmap(grad) against a per-lane
+   loop and against the prefill's call; one fp32 epoch of a 2-layer cut on
+   the card against the CPU's (its local SGD teacher-forced step by step
+   where a routing flip makes the free run part).  Phase 3 holds swa_attention at the probe's shape.  (b)
+   llama4-scout-17b-a16e and jamba-v0.1-52b at reduced() through the same
+   entry point, one epoch each, launches exact (jamba's probe launches
+   ssd_scan too).
+14. The drivers beside the package: ``examples/quickstart_torch.py`` cut
+   to 10 epochs a policy and 4 a scenario seed, and one cell of ``benchmarks/ehfl_grid_torch.py``'s quick
+   protocol (vaoi, alpha 0.1, p_bc 0.1, 2 seeds), each with its launches
+   counted and its wall time.
 9a. The scenario axes at phase 4's width and depth: three runs that cover
    every harvest, stream and channel scenario (markov + drift + fading;
    hetero + arrival + erasure at p_loss 0.3, concentration 1.0; diurnal
@@ -352,6 +374,56 @@ TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6
 PROBE_FEATURE_RTOL = 0.05
 CE_CHUNK_RTOL = 1e-5
 
+# Phase 13, EHFL with routed LM clients.  13a: deepseek-moe-16b at its
+# published width (d 2048, 16 heads of 128, 64 routed experts of d_ff 1408
+# plus 2 shared, top-6, vocab 102,400), bf16, random weights seed 0, cut to
+# ROUTED_DEPTH of 28 layers: the simulator holds the global model, the N
+# message rows (old and new side by side while they are written) and,
+# while the slab trains, k lanes, k gradients and k updated lanes, plus the
+# (P,) fp32 mean.  At 2 layers (1.60 B parameters, 3.2 GB a bf16 copy) an
+# H100 measured a peak of 63.9 GB; 3 layers (2.18 B) would need about 87.  The
+# dynamics of tests/test_torch_lm_backend.py at the reference driver's
+# 64-token sequences: 4 clients x 16 sequences, k = 2, kappa = 4 steps of
+# 4 sequences, probe 4, 3 epochs.  13b: llama4-scout-17b-a16e and
+# jamba-v0.1-52b at reduced() through the same entry point, one epoch each
+# (at published width one llama4 layer with its embedding and head is about
+# 8.6 GB a bf16 copy, and the simulator's N + 3k copies do not fit).
+ROUTED_ARCH, ROUTED_DEPTH = "deepseek-moe-16b", 2
+ROUTED_SIM = dict(num_clients=4, k=2, kappa=4, probe_size=4, slots_per_epoch=8, p_bc=1.0, e_max=9, mu=0.01,
+                  epochs=3, eval_every=3)
+ROUTED_SEQS, ROUTED_SEQ_LEN = 16, 64
+ROUTED_REDUCED = ("llama4-scout-17b-a16e", "jamba-v0.1-52b")
+# Phase 3 holds swa_attention at 13a's probe: N x probe = 16 sequences
+ROUTED_SWA_SHAPES = {"deepseek-moe-16b EHFL probe": (16, 16, 16, 64, 128, True)}
+# 13a's checks.  The dispatch at published width, fp32, TF32 off: one MoE
+# layer's params in two lanes, each lane a client's step batch (4 x 64
+# tokens), under vmap(grad) against a per-lane loop and against the call
+# as the prefill step makes it (inference mode, no vmap): top_idx and the
+# kept mask exactly (tokens with two of their first k + 1 probabilities
+# within NEAR_TIE are counted and left out, as in tests/test_torch_moe.py),
+# y within DISPATCH_Y_RTOL of its largest element, the vmapped gradients
+# within DISPATCH_GRAD_RTOL of the largest gradient element (an H100 read
+# 2.5e-6 for both, and the prefill's call 0).  Then one fp32 epoch of a
+# 2-layer cut at published width on the card against the same epoch on the
+# CPU, from the same state and draws (ROUTED_CHECK_SIM: 2 clients and
+# k = 1, as 4 clients' fp32 copies do not fit the card): selections, ages,
+# battery, energy and the other integers exactly, the global params within
+# ROUTED_PARAM_ATOL (an H100 read 1.2e-7: the two sum in other orders, and
+# no routing flipped).  Where a routing flip makes the free run part beyond
+# it, the local SGD is teacher-forced step by step instead, as in phase
+# 9a: each CPU step from the card's weights within ROUTED_STEP_ATOL
+# (STEP_ATOL, a quarter of a step's largest update, 7.9e-4) of the card's.
+DISPATCH_Y_RTOL, DISPATCH_GRAD_RTOL, NEAR_TIE = 1e-5, 1e-4, 1e-6
+ROUTED_CHECK_SIM = dict(ROUTED_SIM, num_clients=2, k=1, epochs=1, eval_every=1)
+ROUTED_PARAM_ATOL, ROUTED_STEP_ATOL = 1e-6, STEP_ATOL
+# Phase 14, the drivers beside the package: examples/quickstart_torch.py
+# cut to QUICK_EPOCHS per policy and QUICK_GALLERY_EPOCHS per scenario seed
+# (its defaults are 25 and 10), and one cell of
+# benchmarks/ehfl_grid_torch.py's quick protocol (vaoi, alpha 0.1, p_bc
+# 0.1, 2 seeds); the full grid is not run.
+QUICK_EPOCHS, QUICK_GALLERY_EPOCHS = 10, 4
+DRIVER_CELL = ("vaoi", 0.1, 0.1)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -508,6 +580,33 @@ def ragged_leaf_tables(torch, g, dev):
                     groups.append((leaves, (w / w.sum()).to(dev)))
                 nan_cols = sum(1 if c == 1 else 2 for c in cols) if n_groups == 2 else 0
                 yield groups, dtype, nan_cols
+
+
+def leaves_in_runs(torch, groups):
+    """The leaf table through the wrapper's loop over runs of MAX_LEAVES
+    leaves (the path of a table of more than MAX_LEAVES), here over a table
+    that fits one run, beside the wrapper's one launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fedavg_reduce as fr
+
+    cols, ptrs, index = fr.check_leaves(groups)
+    out = torch.empty(sum(cols), dtype=torch.float32, device=groups[0][1].device)
+    return fr.reduce_in_runs(groups, cols, ptrs, build.launch_stream("fedavg_reduce", index), out)
+
+
+def abba_ms(a, b, iters: int) -> dict:
+    """Event times of ``a`` and ``b`` in turns A, B, B, A, ``iters`` runs
+    each: each one's median over its two turns, the medians of the turns,
+    and the spread (the larger gap between one's two turns)."""
+    turns = {"a": [], "b": []}
+    for name, fn in (("a", a), ("b", b), ("b", b), ("a", a)):
+        turns[name].append(event_samples(fn, iters))
+    med = {k: [statistics.median(x) for x in v] for k, v in turns.items()}
+    out = {f"{k}_ms": statistics.median(v[0] + v[1]) for k, v in turns.items()}
+    out.update(a_turns_ms=med["a"], b_turns_ms=med["b"],
+               spread_ms=max(abs(med["a"][0] - med["a"][1]), abs(med["b"][0] - med["b"][1])))
+    out["a_minus_b_ms"] = out["a_ms"] - out["b_ms"]
+    return out
 
 
 def host_ms(fns: dict, iters: int = 2000, rounds: int = 6) -> dict:
@@ -673,6 +772,18 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
     row.update(plain_device_ms=device_ms(plain)["ms"], device_bound_share=b_ms / row["device_ms"],
                single_matrix=[{k: r[k] for k in ("role", "shape", "ms", "device_ms", "bound_ms", "library_ms",
                                                    "library_device_ms")} for r in single])
+    # the wrapper's cost: the loop over runs of MAX_LEAVES leaves (a table
+    # of 18 is one run) against the wrapper's one launch, its arguments
+    # built from the whole table at once, in turns A, B, B, A.  Three H100
+    # runs read the loop 0.0296, 0.0009 and 0.0352 ms over the one launch
+    # (spreads 0.0190, 0.0057, 0.0209), so a table that fits one launch
+    # takes it
+    runs = lambda: leaves_in_runs(torch, groups)  # noqa: E731
+    if not torch.equal(runs(), got):
+        raise AssertionError("the leaf table through the run loop disagrees with the wrapper's")
+    row["wrapper_turns"] = abba_ms(runs, kernel, EHFL_ITERS)
+    log(json.dumps({"phase": "leaf_table_wrapper_turns", "a": "the loop over runs of 32 leaves",
+                    "b": "the wrapper: one launch, arguments built at once", **row["wrapper_turns"]}))
     log(json.dumps(row))
     results["fedavg_reduce"] = [row]
     del groups, got, want
@@ -914,19 +1025,24 @@ class ServeSpec:
 # Phase 11: the rest of the zoo at published width, bf16, random weights.
 # Two depth cuts, for memory on one 80 GB card: llama4-scout 12 of 48 layers
 # (215.5 GB whole), jamba 16 of 32 (two super-blocks of 8, layer kinds and
-# MoE placement unchanged; 102.9 GB whole).  Requests: 4 prompts of 128
-# tokens, then 16 greedy; the fp32 check on a 2-layer model at full width.
-ZOO_REQ = dict(runs=3, plain_runs=1, req_p=128, req_g=16, fp32_layers=2)
+# MoE placement unchanged; 102.9 GB whole).  Requests: 4 prompts of 32
+# tokens (128 for the routed stacks, ZOO_MOE_REQ: PREFILL_DECODE_BF16 holds
+# them at that length, and at 32 llama4-scout's top-1 routes part further,
+# to 0.71 of the largest logit; the dense stacks read 0.019-0.022 at 32),
+# then 8 greedy; the fp32 check on a 2-layer model at full width.
+ZOO_REQ = dict(runs=3, plain_runs=1, req_p=32, req_g=8, fp32_layers=2)
+ZOO_MOE_REQ = dict(ZOO_REQ, req_p=128)
 ATTN = ("swa_attention",)
 ZOO = (
     ServeSpec("qwen1.5-0.5b", "p11_qwen1.5-0.5b_", 4, 4096, {"swa_attention": 24}, mutants=ATTN, **ZOO_REQ),
     ServeSpec("codeqwen1.5-7b", "p11_codeqwen1.5-7b_", 1, 4096, {"swa_attention": 32}, mutants=ATTN, **ZOO_REQ),
     ServeSpec("command-r-35b", "p11_command-r-35b_", 1, 4096, {"swa_attention": 40}, mutants=ATTN, **ZOO_REQ),
-    ServeSpec("deepseek-moe-16b", "p11_deepseek-moe-16b_", 1, 4096, {"swa_attention": 28}, mutants=ATTN, **ZOO_REQ),
+    ServeSpec("deepseek-moe-16b", "p11_deepseek-moe-16b_", 1, 4096, {"swa_attention": 28}, mutants=ATTN,
+              **ZOO_MOE_REQ),
     ServeSpec("llama4-scout-17b-a16e", "p11_llama4-scout-17b-a16e_", 1, 4096, {"swa_attention": 12}, depth=12,
-              mutants=ATTN, **ZOO_REQ),
+              mutants=ATTN, **ZOO_MOE_REQ),
     ServeSpec("jamba-v0.1-52b", "p11_jamba-v0.1-52b_", 1, 4096, {"ssd_scan": 14, "swa_attention": 2}, depth=16,
-              mutants=("ssd_scan",), **ZOO_REQ),
+              mutants=("ssd_scan",), **ZOO_MOE_REQ),
     ServeSpec("internvl2-2b", "p11_internvl2-2b_", 4, 1792, {"swa_attention": 24}, prefix_tokens=256,
               mutants=ATTN, **ZOO_REQ),
     ServeSpec("whisper-large-v3", "p11_whisper-large-v3_", 4, 448, {"swa_attention": 64}, mutants=ATTN, **ZOO_REQ),
@@ -1183,8 +1299,10 @@ def phase_lm_serving(torch, dev, ops, smi, spec: ServeSpec):
     torch.cuda.reset_peak_memory_stats()
     req = inputs(REQ_B, spec.req_p)
     frames = req.get("encoder_frames")
-    last, cache, prompt_s = step_prompts(torch, cfg, params, req["tokens"], dev, decoder, make_serve_step,
-                                         frames, spec.req_g)
+    stepped = []  # the prompt steps, their MoE routings recorded for (d) (prompt_step_s includes that)
+    decode_routings = moe_routings(lambda: stepped.append(step_prompts(
+        torch, cfg, params, req["tokens"], dev, decoder, make_serve_step, frames, spec.req_g)))
+    last, cache, prompt_s = stepped.pop()
     step = make_serve_step(cfg)
     tok = torch.argmax(last[:, -1], dim=-1)[:, None]
     generated = [tok]
@@ -1232,9 +1350,7 @@ def phase_lm_serving(torch, dev, ops, smi, spec: ServeSpec):
     prefill_vs_decode(no_drop(cfg), params, last)
     if cfg.num_experts:  # routing is discontinuous: where do the two routes part?
         pre = last_token_routes(torch, moe_routings(lambda: make_prefill_step(no_drop(cfg))(params, req)))
-        dec = last_token_routes(torch, moe_routings(
-            lambda: step_prompts(torch, cfg, params, req["tokens"], dev, decoder, make_serve_step, frames)
-        ))[-len(pre):]
+        dec = last_token_routes(torch, decode_routings)[-len(pre):]
         flips = [int((a != b).any(dim=-1).sum().item()) for a, b in zip(pre, dec)]
         log(json.dumps({"phase": f"{prefix}serving_prefill_vs_decode_routes", "dtype": "bfloat16",
                         "moe_layers": len(pre), "rows": REQ_B, "last_token_routes_differing_by_layer": flips,
@@ -1442,7 +1558,8 @@ def phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev):
     route, each element within ssd_bf16_limit of the plain version on the
     same inputs, timed beside it, its bound from this run's shape."""
     g = torch.Generator().manual_seed(5)
-    rows = {"swa_attention": swa_shape_rows(torch, ref, kern_swa, dev, g, {**ZOO_SWA_SHAPES, **TRAIN_SWA_SHAPES}),
+    rows = {"swa_attention": swa_shape_rows(torch, ref, kern_swa, dev, g,
+                                            {**ZOO_SWA_SHAPES, **TRAIN_SWA_SHAPES, **ROUTED_SWA_SHAPES}),
             "ssd_scan": []}
     b, s, nh, hp, ds, L = ZOO_SSD_SHAPE
     inputs = ssd_inputs(torch, g, b, s, nh, hp, ds, torch.bfloat16, dev)
@@ -2264,6 +2381,87 @@ def train_step_timed(torch, step, params, batch, runs):
     return losses, times
 
 
+def leaf_launches(leaves) -> int:
+    """fedavg_reduce launches of one FedAvg over ``leaves`` ((shape, dtype)
+    each): one call a dtype (``simulator.leaf_mean``), runs of MAX_LEAVES."""
+    from repro_torch.kernels.fedavg_reduce import MAX_LEAVES
+
+    per_dtype = {}
+    for _, dtype in leaves:
+        per_dtype[dtype] = per_dtype.get(dtype, 0) + 1
+    return sum(math.ceil(n / MAX_LEAVES) for n in per_dtype.values())
+
+
+def lm_kernel_rows(torch, ops, ref, kern_fedavg, feats, leaves, groups, mu, seed) -> dict:
+    """The EHFL kernels at an LM client's shapes, each against its plain
+    version on the same inputs and timed beside it and the library call
+    that computes the same function; bounds from this run's shapes.
+    vaoi_distance over the probe's (N, V) ``feats`` against moments drawn
+    from ``seed``; the FedAvg leaf table over stacked leaves of ``leaves``
+    ((shape, dtype) each, in sorted-name order), one group per (rows,
+    (rows,) weights) of ``groups``, drawn from ``seed`` + 1, one call a leaf
+    dtype as the simulator makes them (within one fp32 ulp: both read the
+    leaves exactly into fp32 and reduce in the same order).  Returns
+    {kernel: row}."""
+    dev = feats.device
+    rows = {}
+    N, V = feats.shape
+    h = torch.softmax(torch.randn(N, V, generator=torch.Generator(device=dev).manual_seed(seed), device=dev), dim=-1)
+    age, q = torch.arange(N, dtype=torch.float32, device=dev), (torch.arange(N, device=dev) % 4 == 0).float()
+    m, new_age = ops.vaoi_distance(feats, h, age, q, mu)
+    m_ref, age_ref = ref.vaoi_distance_ref(feats, h, age, q, mu)
+    err = (m - m_ref).abs().max().item()
+    if err > 1e-6 * max(1.0, m_ref.abs().max().item()) or not torch.equal(new_age, age_ref):
+        raise AssertionError(f"vaoi_distance at ({N}, {V}) disagrees with its plain version: {err}")
+    t = interleaved_ms({
+        "kernel": lambda: ops.vaoi_distance(feats, h, age, q, mu),
+        "plain": lambda: ref.vaoi_distance_ref(feats, h, age, q, mu),
+        "library": lambda: torch.linalg.vector_norm(feats - h, dim=-1),
+    }, EHFL_ITERS)
+    b_ms, b_by = bound(2 * N * V * 4 + 4 * N * 4, 3 * N * V)
+    rows["vaoi_distance"] = {"shape": [N, V], "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
+                             "library": "linalg.vector_norm(v - h, dim=-1)"}
+    del h
+    gl = torch.Generator(device=dev).manual_seed(seed + 1)
+    drawn = [([torch.randn((k,) + s, generator=gl, device=dev).to(dt) for s, dt in leaves], w) for k, w in groups]
+    tables = [[([x for x, (_, dt) in zip(xs, leaves) if dt == dtype], w) for xs, w in drawn]
+              for dtype in dict.fromkeys(dt for _, dt in leaves)]
+    del drawn
+    n_params = sum(math.prod(s) for s, _ in leaves)
+    before = kern_fedavg.launches
+    ulps = 0.0
+    for table in tables:
+        ulps = max(ulps, ulps_apart(torch, ops.fedavg_reduce_leaves(table), ref.fedavg_reduce_leaves_ref(table)))
+    launches = kern_fedavg.launches - before
+    if ulps > 1.0 or launches != leaf_launches(leaves):
+        raise AssertionError(f"the leaf table over {len(leaves)} leaves is {ulps} fp32 ulps from its plain version, "
+                             f"in {launches} launches")
+
+    def library():
+        for table in tables:
+            out = None
+            for xs, w in table:
+                part = torch.mv(torch.cat([x.reshape(x.shape[0], -1) for x in xs], 1).T.float(), w)
+                out = part if out is None else out + part
+
+    t = {"kernel": time_ms(lambda: [ops.fedavg_reduce_leaves(table) for table in tables], iters=10, warmup=2),
+         "plain": time_ms(lambda: [ref.fedavg_reduce_leaves_ref(table) for table in tables], iters=3, warmup=1),
+         "library": time_ms(library, iters=5, warmup=1)}
+    k_all = sum(k for k, _ in groups)
+    nbytes = sum(k_all * math.prod(s) * torch.empty((), dtype=dt).element_size() for s, dt in leaves)
+    b_ms, b_by = bound(nbytes + 4 * k_all * len(tables) + 4 * n_params, 2 * k_all * n_params)
+    rows["fedavg_reduce"] = {"shape": [[k for k, _ in groups], len(leaves), n_params],
+                             "dtypes": {str(dt): sum(d == dt for _, d in leaves) for dt in dict.fromkeys(
+                                 d for _, d in leaves)},
+                             "max_ulps": ulps, "launches_per_call": launches, "ms": t["kernel"],
+                             "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
+                             "library": "mv(cat(leaves).T.float(), w) per dtype and row group, added"}
+    del tables
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
     """Phase 12: LM training at full width on the card.  12a the training
     round function, counted and timed, with its probe, its mean and its
@@ -2272,7 +2470,6 @@ def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
     launch counts of 12a and the kernel rows at its shapes."""
     from repro_torch.configs import get_config
     from repro_torch.data import make_token_dataset
-    from repro_torch.kernels.fedavg_reduce import MAX_LEAVES
     from repro_torch.launch.steps import make_train_step
     from repro_torch.launch.train import run_rounds
     from repro_torch.models import decoder
@@ -2287,7 +2484,8 @@ def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
     flat = decoder.flat_params(params)
     n_params, n_leaves = sum(t.numel() for t in flat.values()), len(flat)
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
-    per_round = {"vaoi_distance": 1, "fedavg_reduce": math.ceil(n_leaves / MAX_LEAVES), "ssd_scan": 0,
+    per_round = {"vaoi_distance": 1, "fedavg_reduce": leaf_launches([(t.shape, t.dtype) for t in flat.values()]),
+                 "ssd_scan": 0,
                  "swa_attention": n_attn * (1 + d["k"])}  # the probe, then each client's refresh
 
     # 12a: the training rounds, the main path of this phase
@@ -2361,50 +2559,16 @@ def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
 
     # the kernels at this phase's shapes: Eq. 5 + Eq. 7 over (8, V), the
     # round's mean over 290 leaves in runs of 32
-    rows = {}
-    N, V = v_kernel.shape
-    h = torch.softmax(torch.randn(N, V, generator=torch.Generator(device=dev).manual_seed(4), device=dev), dim=-1)
-    age, q = torch.arange(N, dtype=torch.float32, device=dev), (torch.arange(N, device=dev) % 4 == 0).float()
-    m, new_age = ops.vaoi_distance(v_kernel, h, age, q, d["mu"])
-    m_ref, age_ref = ref.vaoi_distance_ref(v_kernel, h, age, q, d["mu"])
-    err = (m - m_ref).abs().max().item()
-    if err > 1e-6 * max(1.0, m_ref.abs().max().item()) or not torch.equal(new_age, age_ref):
-        raise AssertionError(f"vaoi_distance at ({N}, {V}) disagrees with its plain version: {err}")
-    t = interleaved_ms({
-        "kernel": lambda: ops.vaoi_distance(v_kernel, h, age, q, d["mu"]),
-        "plain": lambda: ref.vaoi_distance_ref(v_kernel, h, age, q, d["mu"]),
-        "library": lambda: torch.linalg.vector_norm(v_kernel - h, dim=-1),
-    }, EHFL_ITERS)
-    b_ms, b_by = bound(2 * N * V * 4 + 4 * N * 4, 3 * N * V)
-    rows["vaoi_distance"] = {"shape": [N, V], "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
-                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
-                             "library": "linalg.vector_norm(v - h, dim=-1)"}
-    del v_plain, v_wrong, h
-    shapes = {name: tuple(x.shape) for name, x in sorted(decoder.flat_params(final).items())}
-    gl = torch.Generator(device=dev).manual_seed(5)
-    leaves = [torch.randn((d["k"],) + s, generator=gl, device=dev).to(cfg.dtype) for s in shapes.values()]
-    table = [(leaves, torch.full((d["k"],), 1.0 / d["k"], device=dev))]
-    before = kern_fedavg.launches
-    got = ops.fedavg_reduce_leaves(table)
-    if kern_fedavg.launches - before != per_round["fedavg_reduce"]:
-        raise AssertionError(f"the leaf table over {n_leaves} leaves took {kern_fedavg.launches - before} launches")
-    ulps = ulps_apart(torch, got, ref.fedavg_reduce_leaves_ref(table))
-    if ulps > 1.0:
-        raise AssertionError(f"the leaf table over {n_leaves} leaves is {ulps} fp32 ulps from its plain version")
-    del got
-    w = table[0][1]
-    t = {"kernel": time_ms(lambda: ops.fedavg_reduce_leaves(table), iters=10, warmup=2),
-         "plain": time_ms(lambda: ref.fedavg_reduce_leaves_ref(table), iters=3, warmup=1),
-         "library": time_ms(lambda: torch.mv(torch.cat([x.reshape(d["k"], -1) for x in leaves], 1).T.float(), w),
-                            iters=5, warmup=1)}
-    b_ms, b_by = bound(d["k"] * n_params * 2 + 4 * d["k"] + 4 * n_params, 2 * d["k"] * n_params)
-    rows["fedavg_reduce"] = {"shape": [d["k"], n_leaves, n_params], "dtype": str(cfg.dtype), "max_ulps": ulps,
-                             "launches_per_call": per_round["fedavg_reduce"], "ms": t["kernel"],
-                             "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
-                             "library": "mv(cat(leaves).T.float(), w)"}
+    del v_plain, v_wrong
+    leaves = [(tuple(x.shape), x.dtype) for _, x in sorted(decoder.flat_params(final).items())]
+    w = torch.full((d["k"],), 1.0 / d["k"], device=dev)
+    rows = lm_kernel_rows(torch, ops, ref, kern_fedavg, v_kernel, leaves, [(d["k"], w)], d["mu"], 4)
+    if rows["fedavg_reduce"]["launches_per_call"] != per_round["fedavg_reduce"]:
+        raise AssertionError(f"the leaf table over {n_leaves} leaves took {rows['fedavg_reduce']['launches_per_call']}"
+                             f" launches")
     for name, row in rows.items():
         log(json.dumps({"phase": "p12a_kernel_shape", "kernel": name, **row, "power_limit": smi}))
-    del leaves, table, final, params, flat, data, v_kernel
+    del final, params, flat, data, v_kernel
     torch.cuda.empty_cache()
 
     # 12b: the train step at width, remat and the chunked CE
@@ -2472,11 +2636,367 @@ def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
     return launches, rows
 
 
+def token_clients(torch, vocab, clients, seqs, seq_len, seed=0):
+    """LM clients' data as the simulator takes it: each client's token
+    sequences (``make_token_dataset`` from ``seed``, on the CPU) as its
+    'images', zero labels, client 0's sequences as the test set."""
+    from repro_torch.data import make_token_dataset
+
+    toks = make_token_dataset(torch.Generator().manual_seed(seed), clients, seqs, seq_len, vocab)["tokens"]
+    return {"images": toks, "labels": torch.zeros(clients, seqs, dtype=torch.long), "test_images": toks[0],
+            "test_labels": torch.zeros(seqs, dtype=torch.long)}
+
+
+def counted_lm_run(torch, ops, sim, cfg, mcfg, data, dev):
+    """``run_simulation`` with ``lm_backend(mcfg)`` on the card from random
+    weights seed 0, the kernel counters set to 0 just before and read just
+    after: per epoch exactly one vaoi_distance launch, the leaf table in
+    runs of 32 leaves, and the probe's one swa_attention (ssd_scan) launch
+    per attention (SSM) layer, on the tensor-core routes in bf16 and the
+    FMA routes in fp32.  Returns (the run, its backend, the launches per
+    epoch, the counts, their routes, wall seconds, peak GB)."""
+    from repro_torch.fl import lm_backend
+    from repro_torch.models import decoder
+
+    params = decoder.flat_params(decoder.init_params(mcfg, seed=0, device=dev))
+    kinds = [mcfg.layer_kind(i) for i in range(mcfg.num_layers)]
+    per_epoch = {"vaoi_distance": 1, "fedavg_reduce": leaf_launches([(t.shape, t.dtype) for t in params.values()]),
+                 "ssd_scan": kinds.count("ssm"), "swa_attention": kinds.count("attn")}
+    backend = lm_backend(mcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.run_simulation(cfg, backend, data, params=params, device=dev)
+    wall = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.route_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    want = {k: v * cfg.epochs for k, v in per_epoch.items()}
+    route = "launches_tc" if mcfg.dtype == torch.bfloat16 else "launches_fma"
+    if launches != want or any(routes[k][route] != launches[k] for k in routes):
+        raise AssertionError(f"{mcfg.name} under lm_backend: launches {launches} != {want}, or off the {route} "
+                             f"routes ({routes})")
+    m = out["metrics"]
+    if not (all(torch.isfinite(v).all().item() for v in out["global_params"].values())
+            and torch.isfinite(m["avg_m"]).all().item() and m["n_started"].sum().item() > 0):
+        raise AssertionError(f"{mcfg.name} under lm_backend: non-finite params or avg_m, or nobody trained")
+    return out, backend, per_epoch, launches, routes, wall, peak
+
+
+def tree_lane(tree, i):
+    return {k: tree_lane(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def routed_dispatch_check(torch, mcfg, dev) -> dict:
+    """13a's dispatch at published width in fp32: one MoE layer's params in
+    two lanes (the second perturbed), each lane a client's step batch,
+    through vmap against a per-lane loop and against the call the prefill
+    step makes (inference mode, no vmap); see DISPATCH_Y_RTOL."""
+    from torch.func import grad, vmap
+
+    from repro_torch.core.draws import sgd_batch_size
+    from repro_torch.models import moe
+
+    c = dataclasses.replace(mcfg, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(8)
+    p = moe.init_moe(g, c, torch.float32)
+    lanes = {k: map_tensors(v, lambda t: t.unsqueeze(0).expand((2,) + t.shape).contiguous()) for k, v in p.items()}
+    lanes["router"][1] += 0.1 * torch.randn(lanes["router"][1].shape, generator=g, device=dev) / math.sqrt(c.d_model)
+    del p
+    bs = sgd_batch_size(ROUTED_SIM["kappa"], ROUTED_SEQS)
+    xs = torch.randn(2, bs, ROUTED_SEQ_LEN, c.d_model, generator=g, device=dev)
+
+    def outputs(p, x):
+        r = moe.route(c, p, x)
+        return moe.apply_moe(c, p, x)[0], r.top_idx, r.keep
+
+    def loss(p, x):
+        y, aux = moe.apply_moe(c, p, x)
+        return (y ** 2).mean() + aux
+
+    y_b, idx_b, keep_b = vmap(outputs)(lanes, xs)
+    g_b = vmap(grad(loss))(lanes, xs)
+    row = {"phase": "p13a_dispatch", "dtype": "float32", "lanes": 2, "tokens_per_lane": bs * ROUTED_SEQ_LEN,
+           "capacity_factor": c.capacity_factor, "y_rtol": DISPATCH_Y_RTOL, "grad_rtol": DISPATCH_GRAD_RTOL,
+           "near_ties": 0, "routing_mismatches": 0, "dropped_choices": 0}
+    y_err, g_err = {"loop": 0.0, "prefill": 0.0}, 0.0
+    for i in range(2):
+        lane = tree_lane(lanes, i)
+        y_l, idx_l, keep_l = outputs(lane, xs[i])
+        g_l = grad(loss)(lane, xs[i])
+        with torch.inference_mode():
+            r_p = moe.route(c, lane, xs[i])
+            y_p, _ = moe.apply_moe(c, lane, xs[i])
+        probs = torch.softmax(xs[i].reshape(bs, r_p.ng, r_p.G, c.d_model).float() @ lane["router"], dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values[..., : c.experts_per_token + 1]
+        tie = (top[..., :-1] - top[..., 1:]).min(dim=-1).values < NEAR_TIE
+        row["near_ties"] += int(tie.sum())
+        for idx, keep in ((idx_l, keep_l), (r_p.top_idx, r_p.keep)):
+            row["routing_mismatches"] += int(((idx != idx_b[i]) | (keep != keep_b[i])).any(dim=-1)[~tie].sum())
+        row["dropped_choices"] += int((~keep_l).sum())
+        scale = y_l.abs().max().item()
+        y_err["loop"] = max(y_err["loop"], (y_b[i] - y_l).abs().max().item() / scale)
+        y_err["prefill"] = max(y_err["prefill"], (y_p - y_l).abs().max().item() / scale)
+        big = max(t.abs().max().item() for t in flat_tensors(g_l))
+        g_err = max(g_err, max((a - b[i]).abs().max().item() for a, b in zip(flat_tensors(g_l), flat_tensors(g_b)))
+                    / big)
+    row.update(y_rel_err_vmap_vs_loop=y_err["loop"], y_rel_err_prefill_vs_loop=y_err["prefill"],
+               grad_rel_err_vmap_vs_loop=g_err)
+    log(json.dumps(row))
+    if row["routing_mismatches"] or max(y_err.values()) > DISPATCH_Y_RTOL or g_err > DISPATCH_GRAD_RTOL:
+        raise AssertionError(f"phase 13a: the dispatch under vmap parts from the per-lane loop or the prefill's: {row}")
+    return row
+
+
+def forced_local_sgd(torch, cfg, backend, params, images, labels, perms, dev) -> tuple:
+    """The simulator's local SGD (``_local_train``'s steps, without the
+    feature tap) for the clients of ``images`` on the card, each step also
+    taken on the CPU from the card's weights of the step before: per step,
+    the CPU step's largest distance from the card's and the card's largest
+    update."""
+    from torch.func import vmap
+
+    from repro_torch.core.draws import sgd_batch_size
+    from repro_torch.optim import sgd_update
+
+    cpu = torch.device("cpu")
+    b, n = images.shape[:2]
+    bs = sgd_batch_size(cfg.kappa, n)
+    rows = torch.arange(b, device=dev).unsqueeze(1)
+    grad_fn = vmap(backend.grad_loss)
+    p = {k: v.unsqueeze(0).expand((b,) + v.shape).contiguous() for k, v in params.items()}
+    errs, moves = [], []
+    for j in range(cfg.kappa):
+        idx = perms[:, j * bs : (j + 1) * bs]
+        imgs, lbls = images[rows, idx], labels[rows, idx]
+        nxt = sgd_update(p, grad_fn(p, imgs, lbls)[1], cfg.lr)
+        pc = to_device(p, cpu)
+        nc = sgd_update(pc, grad_fn(pc, imgs.cpu(), lbls.cpu())[1], cfg.lr)
+        del pc
+        errs.append(max_abs(nc, nxt))
+        moves.append(max_abs(nxt, p))
+        del nc
+        p = nxt
+    return errs, moves
+
+
+def routed_cpu_vs_gpu(torch, sim, mcfg, data, dev) -> dict:
+    """One fp32 epoch of a 2-layer cut at published width on the card
+    against the same epoch on the CPU (ROUTED_CHECK_SIM), from the same
+    state and draws; the local SGD teacher-forced step by step where the
+    free run parts (see ROUTED_PARAM_ATOL)."""
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.fl import lm_backend
+    from repro_torch.models import decoder
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    c2 = dataclasses.replace(mcfg, num_layers=2, dtype=torch.float32)
+    cfg = sim.EHFLConfig(**ROUTED_CHECK_SIM)
+    n = cfg.num_clients
+    d = {"images": data["images"][:n], "labels": data["labels"][:n], "test_images": data["test_images"],
+         "test_labels": data["test_labels"]}
+    dg, dc = sim.to_device_data(d, dev), sim.to_device_data(d, cpu)
+    backend, draws = lm_backend(c2), TorchDraws(cfg.seed)
+    params = decoder.flat_params(decoder.init_params(c2, seed=0, device=dev))
+    carry = sim.init_carry(cfg, backend, dev, params=params, draws=draws)
+    cin = to_device(carry, cpu)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nxt, mg = sim.make_epoch_fn(cfg, backend, dg)(carry, 0, draws.epoch(0, cfg, ROUTED_SEQS, dev))
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out, mc = sim.make_epoch_fn(cfg, backend, dc)(cin, 0, draws.epoch(0, cfg, ROUTED_SEQS, cpu))
+    cpu_s = time.perf_counter() - t1
+    differ = [f for f in EXACT if not same_state(torch, getattr(nxt, f), getattr(out, f))]
+    differ += [k for k in EXACT_METRICS if not torch.equal(mg[k].cpu(), mc[k])]
+    row = {"phase": "p13a_gpu_vs_cpu_epoch", "layers": c2.num_layers, "dtype": "float32", "sim": ROUTED_CHECK_SIM,
+           "params": sum(v.numel() for v in params.values()), "gpu_epoch_s": gpu_s, "cpu_epoch_s": cpu_s,
+           "exact": list(EXACT + EXACT_METRICS), "differ": differ, "n_started": mg["n_started"].item(),
+           "param_max_abs_err": max_abs(nxt.global_params, out.global_params), "h_max_abs_err": max_abs(nxt.h, out.h),
+           "avg_m_abs_err": max_abs(mg["avg_m"], mc["avg_m"]), "param_atol": ROUTED_PARAM_ATOL}
+    del nxt, out, cin, carry
+    errs = []
+    if row["param_max_abs_err"] > ROUTED_PARAM_ATOL:  # a routing flip: force the local SGD step by step
+        perms = draws.epoch(0, cfg, ROUTED_SEQS, dev).perms[: cfg.k]
+        errs, moves = forced_local_sgd(torch, cfg, backend, params, dg["images"][: cfg.k], dg["labels"][: cfg.k],
+                                       perms, dev)
+        row.update(step_max_abs_err=errs, step_max_abs_update=moves, step_atol=ROUTED_STEP_ATOL)
+    row["s"] = time.perf_counter() - t0
+    log(json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+    if differ or row["n_started"] < 1 or (errs and max(errs) > ROUTED_STEP_ATOL):
+        raise AssertionError(f"phase 13a: the card's fp32 epoch parts from the CPU's: {row}")
+    return row
+
+
+def phase_routed_ehfl(torch, dev, ops, ref, kern_fedavg, smi):
+    """Phase 13: EHFL with routed LM clients.  13a deepseek-moe-16b at
+    published width through ``run_simulation`` with ``lm_backend``, counted,
+    timed and profiled, its EHFL kernels at its shapes, its dispatch held to
+    a per-lane loop and the prefill's call, and a 2-layer fp32 epoch held to
+    the CPU's; 13b llama4-scout and jamba at reduced() through the same
+    entry point.  Returns 13a's launches, 13b's and 13a's kernel rows."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.draws import TorchDraws, sgd_batch_size
+    from repro_torch.models import decoder
+
+    torch.cuda.empty_cache()
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    mcfg = dataclasses.replace(get_config(ROUTED_ARCH), num_layers=ROUTED_DEPTH)
+    cfg = sim.EHFLConfig(**ROUTED_SIM)
+    data = token_clients(torch, mcfg.vocab_size, cfg.num_clients, ROUTED_SEQS, ROUTED_SEQ_LEN)
+    out, backend, per_epoch, launches, routes, wall, peak = counted_lm_run(torch, ops, sim, cfg, mcfg, data, dev)
+    lap("13a_run")
+    m = out["metrics"]
+    epoch_s, trained = m["epoch_s"].tolist(), m["n_started"].tolist()
+    bs = sgd_batch_size(cfg.kappa, ROUTED_SEQS)
+    tokens_per_client = cfg.kappa * bs * ROUTED_SEQ_LEN
+    dg = sim.to_device_data(data, dev)
+    gp = out["global_params"]
+    probe_in = dg["images"][:, : cfg.probe_size]
+    probe_ms = time_ms(lambda: backend.probe(gp, probe_in), iters=5, warmup=1)
+
+    def train_forward():
+        with torch.no_grad():
+            toks = dg["images"][0, :bs].long()
+            decoder.loss_fn(mcfg, decoder.nest_params(gp), {"tokens": toks, "labels": toks})
+
+    drops = {"probe": drop_shares(moe_routings(lambda: backend.probe(gp, probe_in))),
+             "train_batch": drop_shares(moe_routings(train_forward))}
+    row = {
+        "phase": "p13a_routed_ehfl", "arch": mcfg.name, "layers": mcfg.num_layers,
+        "published_layers": get_config(ROUTED_ARCH).num_layers, "d_model": mcfg.d_model, "experts": mcfg.num_experts,
+        "top_k": mcfg.experts_per_token, "shared_experts": mcfg.num_shared_experts, "vocab": mcfg.vocab_size,
+        "dtype": str(mcfg.dtype), "params": sum(v.numel() for v in gp.values()), "leaves": len(gp),
+        "sim": ROUTED_SIM, "seqs_per_client": ROUTED_SEQS, "seq_len": ROUTED_SEQ_LEN, "wall_s": wall,
+        "epoch_s": epoch_s, "steady_epoch_s_median": statistics.median(epoch_s[1:]), "clients_trained": trained,
+        "clients_trained_per_s": sum(trained[1:]) / sum(epoch_s[1:]),
+        "tokens_trained_per_s": sum(trained[1:]) * tokens_per_client / sum(epoch_s[1:]),
+        "probe_ms": probe_ms, "moe_drops": drops, "capacity_factor": mcfg.capacity_factor, "peak_gpu_mem_gb": peak,
+        "launches": launches, "launches_per_epoch": per_epoch, "route_launches": routes,
+        "avg_m": m["avg_m"].tolist(), "avg_age": m["avg_age"].tolist(), "f1": m["f1"].tolist(), "power_limit": smi,
+    }
+    log(json.dumps(row))
+    t = cfg.epochs
+    epoch_fn = sim.make_epoch_fn(cfg, backend, dg)
+    draws = TorchDraws(cfg.seed)
+    prof = profile_run(torch, lambda: epoch_fn(out["carry"], t, draws.epoch(t, cfg, ROUTED_SEQS, dev)), dev, "ehfl.",
+                       no_concat=("ehfl.fedavg",))
+    largest = sorted(prof["layers"].items(), key=lambda kv: kv[1]["host_ms"], reverse=True)
+    log(json.dumps({"phase": "p13a_epoch_profile", "largest_ranges_by_host_ms": [
+        {"range": k, "host_ms": v["host_ms"], "device_ms": v["device_ms"]} for k, v in largest[:6]], **prof}))
+    feats = backend.probe(gp, probe_in)
+    leaves = [(tuple(x.shape), x.dtype) for _, x in sorted(gp.items())]
+    lap("13a_probe_drops_profile")
+    del out, gp, m, epoch_fn
+    torch.cuda.empty_cache()
+    k, n = cfg.k, cfg.num_clients
+    groups = [(k, torch.full((k,), 1.0 / k, device=dev)), (n, torch.zeros(n, device=dev))]
+    rows = lm_kernel_rows(torch, ops, ref, kern_fedavg, feats, leaves, groups, cfg.mu, 9)
+    for name, r in rows.items():
+        log(json.dumps({"phase": "p13a_kernel_shape", "kernel": name, **r, "launches_per_epoch": per_epoch[name],
+                        "power_limit": smi}))
+    del feats, dg
+    torch.cuda.empty_cache()
+    lap("13a_kernel_rows")
+    routed_dispatch_check(torch, mcfg, dev)
+    torch.cuda.empty_cache()
+    lap("13a_dispatch")
+    routed_cpu_vs_gpu(torch, sim, mcfg, data, dev)
+    lap("13a_gpu_vs_cpu")
+
+    # 13b: llama4-scout and jamba at reduced() through the same entry point
+    reduced_launches = {}
+    for arch in ROUTED_REDUCED:
+        rc = reduced(get_config(arch))
+        rcfg = sim.EHFLConfig(**dict(ROUTED_SIM, epochs=1, eval_every=1))
+        rdata = token_clients(torch, rc.vocab_size, rcfg.num_clients, ROUTED_SEQS, ROUTED_SEQ_LEN)
+        rout, _, rper, rl, rroutes, rwall, rpeak = counted_lm_run(torch, ops, sim, rcfg, rc, rdata, dev)
+        log(json.dumps({
+            "phase": "p13b_routed_ehfl_reduced", "arch": arch, "layers": rc.num_layers, "d_model": rc.d_model,
+            "layer_kinds": [rc.layer_kind(i) for i in range(rc.num_layers)], "dtype": str(rc.dtype),
+            "epochs": rcfg.epochs, "wall_s": rwall, "clients_trained": rout["metrics"]["n_started"].tolist(),
+            "launches": rl, "launches_per_epoch": rper, "route_launches": rroutes, "peak_gpu_mem_gb": rpeak,
+            "avg_m": rout["metrics"]["avg_m"].tolist(), "power_limit": smi,
+        }))
+        reduced_launches[arch] = rl
+        del rout
+    lap("13b")
+    log(json.dumps({"phase": "p13_seconds", **seconds}))
+    return launches, reduced_launches, rows
+
+
+def phase_drivers(torch, dev, ops, smi):
+    """Phase 14: the drivers beside the package on the card.
+    examples/quickstart_torch.py cut to QUICK_EPOCHS, then one cell of
+    benchmarks/ehfl_grid_torch.py's quick protocol (DRIVER_CELL) with its
+    cache in a temp directory; each counted (one vaoi_distance launch per
+    epoch of a VAoI run, one leaf-table launch per epoch of every run) and
+    timed.  Returns the launches of each."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    sys.path[:0] = [str(root), str(root / "examples")]
+    import quickstart_torch
+    from benchmarks import ehfl_grid_torch as grid
+
+    q = quickstart_torch
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = q.main(["--device", str(dev), "--epochs", str(QUICK_EPOCHS), "--gallery-epochs", str(QUICK_GALLERY_EPOCHS)])
+    quick_s = time.perf_counter() - t0
+    q_launches = ops.launch_counts()
+    gallery = len(q.GALLERY_SEEDS) * QUICK_GALLERY_EPOCHS * len(rows["scenarios"])
+    want = {"vaoi_distance": QUICK_EPOCHS * ("vaoi" in [r["policy"] for r in rows["policies"]]) + gallery,
+            "fedavg_reduce": QUICK_EPOCHS * len(rows["policies"]) + gallery, "ssd_scan": 0, "swa_attention": 0}
+    f1s = [r["f1"] for r in rows["policies"]] + [r["f1_mean"] for r in rows["scenarios"]]
+    log(json.dumps({"phase": "p14_quickstart", "epochs": QUICK_EPOCHS, "gallery_epochs": QUICK_GALLERY_EPOCHS,
+                    "wall_s": quick_s, "rows": rows, "launches": q_launches,
+                    "expected": want, "power_limit": smi}))
+    if q_launches != want or not all(0.0 <= f <= 1.0 for f in f1s):
+        raise AssertionError(f"phase 14: the quickstart launched {q_launches} (want {want}) or an f1 is out of range")
+
+    st = grid.grid_settings(True)
+    cache = grid.CACHE
+    with tempfile.TemporaryDirectory() as tmp:
+        grid.CACHE = Path(tmp)
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec = grid.run_cell(*DRIVER_CELL, st, device=dev)
+            cell_s = time.perf_counter() - t0
+            g_launches = ops.launch_counts()
+            cached = [p.name for p in Path(tmp).iterdir()]
+        finally:
+            grid.CACHE = cache
+    runs = len(st["seeds"]) * st["epochs"]
+    want = {"vaoi_distance": runs, "fedavg_reduce": runs, "ssd_scan": 0, "swa_attention": 0}
+    log(json.dumps({"phase": "p14_grid_cell", "cell": DRIVER_CELL, "settings": st, "wall_s": cell_s,
+                    "seeds_per_hour_at_T500": 3600.0 / (cell_s / runs * 500), "final_f1": rec["f1"][-1],
+                    "f1_per_seed": [f[-1] for f in rec["f1_per_seed"]], "total_energy": rec["total_energy"],
+                    "launches": g_launches, "expected": want, "cached": cached, "power_limit": smi}))
+    if g_launches != want or len(cached) != 1 or not 0.0 <= rec["f1"][-1] <= 1.0:
+        raise AssertionError(f"phase 14: the grid cell launched {g_launches} (want {want}), cached {cached}, or its "
+                             f"f1 is out of range")
+    return {"quickstart": q_launches, "grid_cell": g_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--epochs", type=int, default=10, help="depth T of the paper-width run (paper: 500)")
     args = ap.parse_args()
 
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2511,6 +3031,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # --- phase 2: build ---
+    seconds = {}  # each phase's wall seconds
     t0 = time.perf_counter()
     build.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s for {list(build.KERNELS)}")
@@ -2522,12 +3043,15 @@ def main() -> int:
         tc = [r for r in report if prefill_instance in r["function"]]
         if len(tc) != 1 or tc[0]["spill_stores"] or tc[0]["spill_loads"]:
             raise AssertionError(f"{name}'s bf16 tensor-core instance {prefill_instance} is missing or spills: {tc}")
+    seconds["2"] = time.perf_counter() - t0
 
     # --- phase 3: kernels against their plain versions ---
+    t0 = time.perf_counter()
     kresults = phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, dev)
     kresults["ssd_scan"] = [phase_ssd_kernel(torch, ref, kern_ssd, dev)]
     kresults["swa_attention"] = [phase_swa_kernel(torch, ref, kern_swa, dev)]
     zoo_rows = phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev)
+    seconds["3"] = time.perf_counter() - t0
 
     # --- phase 4: the slice on the card ---
     T = args.epochs
@@ -2570,35 +3094,58 @@ def main() -> int:
         "peak_gpu_mem_gb": peak_gb, "power_limit": smi,
     }))
 
+    seconds["4"] = gpu_s
+
     # --- phase 5: the same run on the CPU, epoch by epoch from shared state ---
+    t0 = time.perf_counter()
     cmp = phase_cpu_vs_gpu(torch, sim, cfg, backend, data, TorchDraws, dev, gm)
     log(json.dumps(cmp))
+    seconds["5"] = time.perf_counter() - t0
 
     # --- phase 6: the serving slice, mamba2-1.3b at full width ---
+    t0 = time.perf_counter()
     serve_launches, serve_routes = phase_lm_serving(torch, dev, ops, smi, ServeSpec(
         "mamba2-1.3b", "", PREFILL_B, PREFILL_P, {"ssd_scan": 48}, plain_runs=3))
 
+    seconds["6"] = time.perf_counter() - t0
+
     # --- phase 7: the attention slice, starcoder2-3b at full width ---
+    t0 = time.perf_counter()
     sc_launches, sc_routes = phase_lm_serving(torch, dev, ops, smi, ServeSpec(
         "starcoder2-3b", "sc_", SC_PREFILL_B, SC_PREFILL_P, {"swa_attention": 30}))
     phase_rolling_wrap(torch, dev)
+    seconds["7"] = time.perf_counter() - t0
 
     # --- phase 11: the rest of the zoo at published width ---
     t0 = time.perf_counter()
     zoo_launches = {spec.arch: phase_lm_serving(torch, dev, ops, smi, spec)[0] for spec in ZOO}
-    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    seconds["11"] = time.perf_counter() - t0
 
     # --- phase 12: LM training at full width ---
     t0 = time.perf_counter()
     train_launches, train_rows = phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi)
-    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    seconds["12"] = time.perf_counter() - t0
+
+    # --- phase 13: EHFL with routed LM clients ---
+    t0 = time.perf_counter()
+    routed_launches, routed_reduced_launches, routed_rows = phase_routed_ehfl(torch, dev, ops, ref, kern_fedavg, smi)
+    seconds["13"] = time.perf_counter() - t0
+
+    # --- phase 14: the drivers beside the package ---
+    t0 = time.perf_counter()
+    driver_launches = phase_drivers(torch, dev, ops, smi)
+    seconds["14"] = time.perf_counter() - t0
 
     # --- phase 9a: the scenario axes at paper width ---
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     scenario_launches = phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi)
+    seconds["9a"] = time.perf_counter() - t0
 
     # --- phase 9b: run_batch at paper width ---
+    t0 = time.perf_counter()
     batch_launches = phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, gpu_s)
+    seconds["9b"] = time.perf_counter() - t0
 
     # --- phase 10: the client-sharded fleet ---
     torch.cuda.empty_cache()
@@ -2606,7 +3153,7 @@ def main() -> int:
     fleet_launches = {"10a": phase_fleet_nccl(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev, smi, steady)}
     fleet_launches.update(phase_fleet_gloo(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev, smi,
                                            make_federated_dataset))
-    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    seconds["10"] = time.perf_counter() - t0
 
     # --- phase 8: every ported kernel, then the result ---
     def entry(name, source, replaces, rows, count):
@@ -2638,11 +3185,16 @@ def main() -> int:
                route_launches=sc_routes["swa_attention"],
                bf16_bound_share=swa_row["bf16_bound_share"], fp32_route_ms=swa_row["fp32_route_ms"],
                bound_fp32_route_ms=swa_row["bound_fp32_route_ms"])
-    for e in (ssd, swa):  # phases 11 and 12: their launches, and phase 3's rows at their shapes
+    for e in (ssd, swa):  # phases 11, 12 and 13: their launches, and phase 3's rows at their shapes
         e.update(launches_phase11={arch: n[e["name"]] for arch, n in zoo_launches.items() if n[e["name"]]},
-                 phase11_shapes=[r for r in zoo_rows[e["name"]] if r["arch"] not in TRAIN_SWA_SHAPES],
+                 phase11_shapes=[r for r in zoo_rows[e["name"]]
+                                 if r["arch"] not in TRAIN_SWA_SHAPES and r["arch"] not in ROUTED_SWA_SHAPES],
                  launches_phase12=train_launches[e["name"]],
-                 phase12_shapes=[r for r in zoo_rows[e["name"]] if r["arch"] in TRAIN_SWA_SHAPES])
+                 phase12_shapes=[r for r in zoo_rows[e["name"]] if r["arch"] in TRAIN_SWA_SHAPES],
+                 phase13_shapes=[r for r in zoo_rows[e["name"]] if r["arch"] in ROUTED_SWA_SHAPES])
+    def driver_launches_of(name):
+        return {k: v[name] for k, v in driver_launches.items()}
+
     ehfl = [
         entry("vaoi_distance", "src/repro_torch/csrc/vaoi_distance.cu",
               "src/repro/kernels/vaoi_distance.py:49", kresults["vaoi_distance"], launches),
@@ -2651,6 +3203,7 @@ def main() -> int:
     ]
     for e in ehfl:  # the launches of phase 9a's runs, 9b's batch, phase 10's fleets (per rank) and phase 12
         e.update(launches_phase12=train_launches[e["name"]], phase12_shape=train_rows[e["name"]],
+                 phase13_shape=routed_rows[e["name"]], launches_phase14=driver_launches_of(e["name"]),
                  launches_scenarios=[c[e["name"]] for c in scenario_launches],
                  launches_run_batch=batch_launches[e["name"]],
                  launches_fleet={k: [c[e["name"]] for c in v] if isinstance(v, list) else v[e["name"]]
@@ -2665,6 +3218,10 @@ def main() -> int:
     ehfl[1].update(row_groups=row_groups, role=leaf_row["role"], library=leaf_row["library"],
                    plain_device_ms=leaf_row["plain_device_ms"], device_bound_share=leaf_row["device_bound_share"],
                    single_matrix=leaf_row["single_matrix"])
+    for e in (*ehfl, ssd, swa):  # phase 13: 13a at published width, 13b at reduced() per arch
+        e.update(launches_phase13=routed_launches[e["name"]],
+                 launches_phase13b={arch: n[e["name"]] for arch, n in routed_reduced_launches.items()})
+    log(json.dumps({"phase_seconds": seconds, "total_s": time.perf_counter() - start}))
     log(json.dumps({"kernels": [
         *ehfl,
         ssd,

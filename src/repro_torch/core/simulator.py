@@ -153,19 +153,37 @@ def _local_train(
     return p, fsum / (cfg.kappa * bs) if with_feature else None
 
 
-def client_leaves(stacked: Params) -> Tuple[List[torch.Tensor], List[Tuple[str, torch.Size, torch.dtype]]]:
-    """A stacked {name: (N, ...)} dict's leaves in sorted-name order (the
-    columns of the reference's ``flatten_clients``), unraveled, and the
-    layout aux that :func:`unflatten_clients` reads."""
-    names = sorted(stacked)
-    return [stacked[k] for k in names], [(k, stacked[k].shape[1:], stacked[k].dtype) for k in names]
-
-
 def unflatten_clients(vec: torch.Tensor, aux: List[Tuple[str, torch.Size, torch.dtype]]) -> Params:
     """One aggregated (P,) vector back into the {name: tensor} dict (views
     where the dtype is the vector's)."""
     parts = vec.split([int(np.prod(shape, dtype=np.int64)) for _, shape, _ in aux])
     return {name: part.view(shape).to(dtype) for (name, shape, dtype), part in zip(aux, parts)}
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def leaf_mean(
+    stacks: Sequence[Params], weights: Sequence[torch.Tensor], reduce_sum: Callable = _identity,
+    count: torch.Tensor | None = None,
+) -> Params:
+    """Σ_g Σ_k weights[g][k]·stacks[g][name][k] for every leaf name of the
+    stacked {name: (K_g, ...)} dicts, in fp32, divided by ``count`` (at
+    least 1) when given, then rounded to each leaf's dtype.  The leaves go
+    to ``fedavg_reduce_leaves`` in sorted-name order (the columns of the
+    reference's ``flatten_clients``), read in place, one call per leaf dtype
+    (a launch reads one dtype: an MoE model keeps its router in fp32 beside
+    bf16 weights); ``reduce_sum`` folds each call's (P,) partial."""
+    names = sorted(stacks[0])
+    out = {}
+    for dtype in dict.fromkeys(stacks[0][n].dtype for n in names):
+        part = [n for n in names if stacks[0][n].dtype == dtype]
+        vec = reduce_sum(kops.fedavg_reduce_leaves([([s[n] for n in part], w) for s, w in zip(stacks, weights)]))
+        if count is not None:
+            vec = vec / count.clamp(min=1.0)
+        out.update(unflatten_clients(vec, [(n, stacks[0][n].shape[1:], dtype) for n in part]))
+    return {n: out[n] for n in names}
 
 
 def _keep_if_empty(mean: Params, cnt: torch.Tensor, fallback: Params) -> Params:
@@ -174,23 +192,18 @@ def _keep_if_empty(mean: Params, cnt: torch.Tensor, fallback: Params) -> Params:
     return {k: torch.where(keep, mean[k], fallback[k]) for k in mean}
 
 
-def _identity(x: torch.Tensor) -> torch.Tensor:
-    return x
-
-
 def _masked_mean(
     stacked: Params, mask: torch.Tensor, fallback: Params, reduce_sum: Callable = _identity
 ) -> Params:
-    """FedAvg over the masked clients through one ``fedavg_reduce`` launch
-    over the leaves with normalized mask weights; ``fallback`` when nobody
-    uploaded.  ``reduce_sum`` folds a shard's partial count and (P,) sum
-    into fleet totals (the fleet's all-reduce; default: this is the whole
-    client axis); the count is folded before the weights are formed."""
+    """FedAvg over the masked clients through ``fedavg_reduce`` over the
+    leaves (one launch a leaf dtype, :func:`leaf_mean`) with normalized
+    mask weights; ``fallback`` when nobody uploaded.  ``reduce_sum`` folds
+    a shard's partial count and (P,) sum into fleet totals (the fleet's
+    all-reduce; default: this is the whole client axis); the count is
+    folded before the weights are formed."""
     w = mask.float()
     cnt = reduce_sum(w.sum())
-    leaves, aux = client_leaves(stacked)
-    mean = unflatten_clients(reduce_sum(kops.fedavg_reduce_leaves([(leaves, w / cnt.clamp(min=1.0))])), aux)
-    return _keep_if_empty(mean, cnt, fallback)
+    return _keep_if_empty(leaf_mean([stacked], [w / cnt.clamp(min=1.0)], reduce_sum), cnt, fallback)
 
 
 def _compact_mean(
@@ -200,15 +213,13 @@ def _compact_mean(
     """FedAvg for the compacted path: this epoch's fresh uploads live in the
     (cap, ...) training slab (``slab_mask``), while carriers of an OLD
     message upload it from the N-wide ``old`` dict (``old_mask``).  One
-    ``fedavg_reduce`` launch reduces both groups, read in place, and adds
-    them (slab + old); they share one count.  ``reduce_sum`` as in
-    :func:`_masked_mean`: a shard's (slab + old) partial is folded whole."""
+    ``fedavg_reduce`` launch (a leaf dtype) reduces both groups, read in
+    place, and adds them (slab + old); they share one count.
+    ``reduce_sum`` as in :func:`_masked_mean`: a shard's (slab + old)
+    partial is folded whole."""
     ws, wo = slab_mask.float(), old_mask.float()
     cnt = reduce_sum(ws.sum() + wo.sum())
-    slab_leaves, aux = client_leaves(slab)
-    old_leaves, _ = client_leaves(old)
-    tot = reduce_sum(kops.fedavg_reduce_leaves([(slab_leaves, ws), (old_leaves, wo)]))
-    return _keep_if_empty(unflatten_clients(tot / cnt.clamp(min=1.0), aux), cnt, fallback)
+    return _keep_if_empty(leaf_mean([slab, old], [ws, wo], reduce_sum, count=cnt), cnt, fallback)
 
 
 def resolve_compact_cap(cfg: EHFLConfig, spec: policy_lib.PolicySpec) -> int | None:

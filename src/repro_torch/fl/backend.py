@@ -45,20 +45,15 @@ def lm_backend(model_cfg: ModelConfig) -> Backend:
     function.  ``probe`` runs the shared model over all N probe batches in
     one forward, its attention through the ``swa_attention`` kernel (scan
     through ``ssd_scan``) on the card; ``grad_loss`` and ``feature`` run the
-    plain forms, which ``torch.func.vmap`` batches over the clients.
+    plain forms, which ``torch.func.vmap`` batches over the clients (a
+    routed stack too: ``models/moe.py``'s dispatch has fixed shapes).
 
-    Raises for the archs whose forward ``vmap`` cannot batch: a routed stack
-    (``models/moe.py`` dispatches through ``nonzero``, whose output shape
-    depends on the data) and an encoder-decoder (its forward needs encoder
-    frames, which the simulator's batches do not carry; the reference's
-    ``lm_backend`` cannot run it either)."""
+    Takes every decoder-only arch; raises ``ValueError`` for an
+    encoder-decoder, whose forward needs encoder frames that the
+    simulator's batches do not carry (the reference's ``lm_backend``
+    cannot run it either)."""
     from repro_torch.models import decoder
 
-    if any(model_cfg.layer_moe(i) for i in range(model_cfg.num_layers)):
-        raise NotImplementedError(
-            f"{model_cfg.name} routes tokens to experts: models/moe.py dispatches through torch.nonzero, whose "
-            "data-dependent shape torch.func.vmap cannot batch over the simulator's clients"
-        )
     if model_cfg.is_encoder_decoder:
         raise ValueError(f"{model_cfg.name} is an encoder-decoder: its forward needs encoder frames")
 

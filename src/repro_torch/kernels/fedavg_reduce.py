@@ -13,8 +13,8 @@ a list of stacked (K, *shape) leaves in ``flatten``'s order (sorted names)
 and a (K,) fp32 weight vector, and leaf j fills the next cols_j columns of
 the (P,) output.  Both groups go in one launch with one fp32 accumulator
 each, added as acc_0 + acc_1, the rounding of two reduces and an add.  A
-launch's table holds up to 32 leaves; a larger model goes in runs of 32,
-one launch each.
+launch's table holds up to 32 leaves: a table that fits goes in one
+launch, a larger model in runs of 32, one launch each.
 Each thread owns 4 columns of a leaf and reads them with one 16-byte (fp32)
 or 8-byte (bf16) load per row, 4 rows in flight; blocks of 64 threads under
 a 32-register budget keep all of the main path's ~3,300 blocks resident at
@@ -104,16 +104,37 @@ def fedavg_reduce_leaves(groups: Sequence[Group]) -> torch.Tensor:
     columns, the groups added in their order.
 
     One launch takes up to ``MAX_LEAVES`` leaves (the by-value table's
-    room), so a model with more (qwen1.5-0.5b's 290) goes in runs of
-    ``MAX_LEAVES``, each launch writing its own slice of the one output.  A
-    run whose slice does not start on a 16-byte boundary (the kernel's wide
-    stores assume one) is written to a buffer of its own and copied in."""
+    room): a table that fits goes in one launch, its argument arrays built
+    from the whole table at once; a model with more (qwen1.5-0.5b's 290)
+    goes in runs of ``MAX_LEAVES`` (:func:`reduce_in_runs`)."""
     cols, ptrs, index = check_leaves(groups)
     stream = build.launch_stream("fedavg_reduce", index)
-    ng, nl = len(groups), len(cols)
     out = torch.empty(sum(cols), dtype=torch.float32, device=groups[0][1].device)
     if out.numel() == 0:
         return out
+    if len(cols) > MAX_LEAVES:
+        return reduce_in_runs(groups, cols, ptrs, stream, out)
+    ng, nl = len(groups), len(cols)
+    err = _launcher()(
+        ng, nl, (ctypes.c_void_p * (ng * nl))(*ptrs), (ctypes.c_void_p * ng)(*[w.data_ptr() for _, w in groups]),
+        (ctypes.c_int * ng)(*[w.shape[0] for _, w in groups]), (ctypes.c_int * nl)(*cols),
+        int(groups[0][0][0].dtype == torch.bfloat16), out.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fedavg_reduce kernel launch failed: CUDA error {err}")
+    fedavg_reduce.launches += 1
+    fedavg_reduce.row_groups += ng
+    return out
+
+
+def reduce_in_runs(groups: Sequence[Group], cols: List[int], ptrs: List[int], stream: int,
+                   out: torch.Tensor) -> torch.Tensor:
+    """The table (checked by :func:`check_leaves`) in runs of
+    ``MAX_LEAVES`` leaves on ``stream``, one launch each, each writing its
+    own slice of ``out``.  A run whose slice does not start on a 16-byte
+    boundary (the kernel's wide stores assume one) is written to a buffer
+    of its own and copied in."""
+    ng, nl = len(groups), len(cols)
     weights = (ctypes.c_void_p * ng)(*[w.data_ptr() for _, w in groups])
     rows = (ctypes.c_int * ng)(*[w.shape[0] for _, w in groups])
     is_bf16 = int(groups[0][0][0].dtype == torch.bfloat16)

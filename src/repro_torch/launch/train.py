@@ -30,7 +30,7 @@ from repro_torch.checkpoint.convert import decoder_params_to_reference
 from repro_torch.checkpoint.npz import save_pytree
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.simulator import client_leaves, unflatten_clients
+from repro_torch.core.simulator import leaf_mean
 from repro_torch.core.vaoi import select_topk
 from repro_torch.data import make_token_dataset
 from repro_torch.device import resolve_device
@@ -69,7 +69,6 @@ def run_rounds(
     # one (k, ...) row per selected client and leaf, reused every round
     slab = {name: torch.empty((k,) + t.shape, dtype=t.dtype, device=device)
             for name, t in decoder.flat_params(params).items()}
-    leaves, layout = client_leaves(slab)
     weights = torch.full((k,), 1.0 / k, device=device)
     history = []
     for r in range(noise.shape[0]):
@@ -94,7 +93,7 @@ def run_rounds(
                 h[i] = decoder.feature_vector(cfg, p, probe_toks[i], use_kernel=True)
             losses.append(torch.stack(step_losses).mean().item())
         with record_function("lm.train.fedavg"):
-            params = decoder.nest_params(unflatten_clients(kops.fedavg_reduce_leaves([(leaves, weights)]), layout))
+            params = decoder.nest_params(leaf_mean([slab], [weights]))
         rec = {"selected": idx, "loss": sum(losses) / len(losses), "avg_age": age.mean().item(),
                "avg_m": m.mean().item()}
         if device.type == "cuda":

@@ -3,14 +3,22 @@
 Shared + routed experts with capacity-dropped top-k routing.  Experts are
 stacked on a leading E axis; the router is kept in fp32 whatever the model
 dtype.  The reference dispatches and combines with one-hot einsums over
-(token, expert, slot); here the same function is a scatter of each kept
-token into its expert's slot and a gather back:
+(token, expert, slot); here the same function is a fixed-shape write of
+every choice into a slot buffer and a gather back, so its shapes never
+depend on the routing (``torch.func.vmap`` batches it over clients, and no
+step waits on the host):
 
-- dispatch: each (expert, slot) holds at most one token, so the one-hot
-  sum has a single nonzero term and the scatter is exact;
-- combine: each token adds its k experts' outputs, each times its gate
-  rounded to the model dtype, in fp32, and rounds once (what XLA's bf16
-  einsum does; adding k bf16 terms in bf16 would be another function).
+- dispatch: the (E B ng C + 1, d) buffer holds the experts' slots,
+  expert-major, and one spare row.  Each choice (b, g, t, j) is written
+  (``index_put``, no accumulation) to its slot's row when it kept a slot
+  and to the spare row when it was dropped; a real slot gets at most one
+  token, so the buffer is exactly the one-hot sum, and the spare row,
+  whichever write lands there, is discarded.  The first E B ng C rows are
+  the experts' (E, B ng C, d) input as they lie;
+- combine: each token reads its k experts' outputs (a dropped choice its
+  expert's slot 0, under gate 0), times its gate rounded to the model
+  dtype, adds them in fp32 and rounds once (what XLA's bf16 einsum does;
+  adding k bf16 terms in bf16 would be another function).
 
 The expert products are batched matmuls (``torch.bmm``), outside any
 kernel, as in the reference.
@@ -90,7 +98,7 @@ def route(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Routing:
     sorted_vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_vals, top_idx = sorted_vals[..., :k], order[..., :k]
     top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
-    mask = torch.zeros_like(probs).scatter_(-1, top_idx, 1.0)  # (B, ng, G, E) in {0, 1}
+    mask = torch.zeros_like(probs).scatter(-1, top_idx, 1.0)  # (B, ng, G, E) in {0, 1}
     # Switch-style load-balance loss
     aux = torch.mean(mask.mean(dim=2) * probs.mean(dim=2)) * (E * E) / k
     pos_in_exp = torch.cumsum(mask, dim=2) * mask - 1.0
@@ -110,21 +118,22 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tenso
     """x: (B, S, d) -> (y, aux loss fp32).  Tokens past an expert's
     capacity in their group are dropped from that expert."""
     B, S, d = x.shape
-    E = cfg.num_experts
+    E, k = cfg.num_experts, cfg.experts_per_token
     r = route(cfg, p, x)
     G, ng, C = r.G, r.ng, r.C
-    xg = x.reshape(B, ng, G, d)
-    # dispatch: kept (b, g, t, j) -> expert top_idx, slot; one token per slot
-    bi, gi, ti, ji = torch.nonzero(r.keep, as_tuple=True)
-    ei, ci = r.top_idx[bi, gi, ti, ji], r.slot[bi, gi, ti, ji]
-    xe = x.new_zeros(E, B, ng, C, d)
-    xe[ei, bi, gi, ci] = xg[bi, gi, ti]
-    ye = _experts(p, xe.reshape(E, B * ng * C, d)).reshape(E, B, ng, C, d)
-    # combine: each token's k outputs times its gates in the model dtype,
-    # added in fp32, rounded once
+    M = E * B * ng * C  # expert slots, expert-major: row ((e * B + b) * ng + g) * C + slot
     b_all = torch.arange(B, device=x.device)[:, None, None, None]
     g_all = torch.arange(ng, device=x.device)[None, :, None, None]
-    picked = ye[r.top_idx, b_all, g_all, r.slot]  # (B, ng, G, k, d)
+    rows = ((r.top_idx * B + b_all) * ng + g_all) * C + r.slot  # (B, ng, G, k)
+    # dispatch: every choice is written to its slot's row, a dropped one to
+    # the spare row M, whose contents are discarded
+    xk = x.reshape(B, ng, G, 1, d).expand(B, ng, G, k, d).reshape(B * ng * G * k, d)
+    slots = torch.index_put(x.new_zeros(M + 1, d), (torch.where(r.keep, rows, M).reshape(-1),), xk)
+    ye = _experts(p, slots[:M].view(E, B * ng * C, d)).reshape(M, d)
+    # combine: each token's k outputs (a dropped choice reads its expert's
+    # slot 0 under gate 0) times its gates in the model dtype, added in fp32,
+    # rounded once
+    picked = ye.index_select(0, rows.reshape(-1)).view(B, ng, G, k, d)
     gates = torch.where(r.keep, r.top_vals, 0.0).to(x.dtype).float()
     y = torch.einsum("bgtkd,bgtk->bgtd", picked.float(), gates).to(x.dtype).reshape(B, S, d)
     if cfg.num_shared_experts > 0:

@@ -87,6 +87,16 @@ def test_macro_f1(seed):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
+def test_macro_f1_over_an_lm_vocab():
+    """An LM client's classes are its vocab: many classes, few predictions,
+    most classes absent from both (counted at once, not class by class)."""
+    rng = np.random.default_rng(3)
+    preds, labels = rng.integers(0, 300, size=64), rng.integers(0, 300, size=64)
+    labels[::3] = preds[::3]
+    got = tcnn.macro_f1(torch.from_numpy(preds), torch.from_numpy(labels), 300)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jcnn.macro_f1(preds, labels, 300)), rtol=1e-6)
+
+
 def test_params_round_trip_and_npz_interchange(pair, tmp_path):
     """convert and the npz format carry the reference's params both ways."""
     from repro.checkpoint.npz import load_pytree as jload

@@ -315,3 +315,60 @@ def test_more_than_32_leaves_launch_in_runs_of_32(name, dtype, cuda_device):
     runs = math.ceil(len(names) / 32)
     assert (fedavg_kernel.launches, fedavg_kernel.row_groups) == (before[0] + runs, before[1] + 2 * runs)
     torch.testing.assert_close(got, ref.fedavg_reduce_leaves_ref(table), rtol=0, atol=1e-5)
+
+
+# An MoE model keeps its router in fp32 beside bf16 weights: leaves "b" and
+# "d" of the ragged layout in fp32 among bf16 ones.  A launch reads one
+# dtype, so ``leaf_mean`` takes one call a dtype; each leaf is held at its
+# own dtype's tolerance.
+MIXED = {"a": "bfloat16", "b": "float32", "c": "bfloat16", "d": "float32", "e": "bfloat16"}
+
+
+def mixed_case(seed):
+    rng = np.random.default_rng(seed)
+    trees = [{n: stacked(rng, {n: RAGGED[n]}, k, MIXED[n])[n] for n in RAGGED} for k in (CAP, N, 1)]
+    slab, old, fb = trees
+    return slab, np.array([1, 0, 1, 1], bool), old, np.arange(N) % 4 == 3, {k: v[0] for k, v in fb.items()}
+
+
+def mixed_torch(tree, device="cpu"):
+    return {k: torch.from_numpy(np.array(v)).to(TORCH_DTYPES[MIXED[k]]).to(device) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("path", ["plain", "pallas"])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_mixed_dtype_leaves_match_reference(groups, path):
+    import jax.numpy as jnp
+    from repro.core import simulator as jsim
+
+    slab, slab_mask, old, old_mask, fb = mixed_case(12)
+    to_j = lambda tree: {k: jnp.asarray(v, getattr(jnp, MIXED[k])) for k, v in tree.items()}  # noqa: E731
+    if groups == 2:
+        got = tsim._compact_mean(mixed_torch(slab), torch.from_numpy(slab_mask), mixed_torch(old),
+                                 torch.from_numpy(old_mask), mixed_torch(fb))
+        want = jsim._compact_mean(to_j(slab), jnp.asarray(slab_mask), to_j(old), jnp.asarray(old_mask), to_j(fb),
+                                  use_kernel=path == "pallas")
+    else:
+        got = tsim._masked_mean(mixed_torch(old), torch.from_numpy(old_mask), mixed_torch(fb))
+        fn = jsim._masked_mean_kernel if path == "pallas" else jsim._masked_mean
+        want = fn(to_j(old), jnp.asarray(old_mask), to_j(fb))
+    assert list(got) == sorted(RAGGED) and all(got[k].dtype == TORCH_DTYPES[MIXED[k]] for k in got)
+    got, want = as_numpy(got), as_numpy(want)
+    for k in RAGGED:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=TOL[MIXED[k]], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_mixed_dtype_leaves_launch_once_per_dtype(cuda_device):
+    """Two dtypes, two launches (each over both row groups), against the
+    same mean on the CPU."""
+    slab, slab_mask, old, old_mask, fb = mixed_case(13)
+    cpu = tsim._compact_mean(mixed_torch(slab), torch.from_numpy(slab_mask), mixed_torch(old),
+                             torch.from_numpy(old_mask), mixed_torch(fb))
+    before = (fedavg_kernel.launches, fedavg_kernel.row_groups)
+    gpu = tsim._compact_mean(mixed_torch(slab, cuda_device), torch.from_numpy(slab_mask).to(cuda_device),
+                             mixed_torch(old, cuda_device), torch.from_numpy(old_mask).to(cuda_device),
+                             mixed_torch(fb, cuda_device))
+    assert (fedavg_kernel.launches, fedavg_kernel.row_groups) == (before[0] + 2, before[1] + 4)
+    for k in cpu:
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=0, atol=1e-6)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch/``, no torch
-example (``examples/*_torch.py``) and nothing in ``chip_smoke.py`` or the
-survey that drives it (``tools/ehfl_step_survey.py``) imports ``jax`` or the
-JAX package ``repro``; and its entry points never quietly
+example (``examples/*_torch.py``) or bench (``benchmarks/*_torch.py``) and
+nothing in ``chip_smoke.py`` or the tools that drive it
+(``tools/ehfl_step_survey.py``, ``tools/prefill_compare.py``) imports
+``jax`` or the JAX package ``repro``; and its entry points never quietly
 fall back to the CPU."""
 import ast
 from pathlib import Path
@@ -14,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = (
     sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     + sorted((ROOT / "examples").glob("*_torch.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "ehfl_step_survey.py"]
+    + sorted((ROOT / "benchmarks").glob("*_torch.py"))
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "ehfl_step_survey.py", ROOT / "tools" / "prefill_compare.py"]
 )
 
 
@@ -24,6 +26,8 @@ def imported_modules(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+            if node.module == "benchmarks":  # a bench module imported by name
+                yield from (f"benchmarks.{a.name}" for a in node.names)
 
 
 def test_port_files_exist():
@@ -35,7 +39,8 @@ def test_port_files_exist():
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
-    bad = [m for m in imported_modules(path) if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
+    bad = [m for m in imported_modules(path) if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")
+           or (m.startswith("benchmarks.") and not m.endswith("_torch"))]  # the JAX benches import jax
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
