@@ -181,6 +181,18 @@ result line):
    Phase 3 also times vaoi_distance at a shard's (25, 10) beside its launch
    floor, and its sweeps hold the shards' shapes ((25, 10), (50, 10),
    (256, 10); leaf tables of a 10-row slab beside 25 and 256 old rows).
+15. The bench suite (``benchmarks/run_torch.py``), after phase 10: the
+   kernels, stream, channel and fleet suites at their quick protocols
+   through the harness's suite functions, each file written to a temp
+   directory and held to ``tools/check_bench.py::check_schema``.  Every
+   stream and channel row counted: vaoi_distance exactly one launch an
+   epoch under a VAoI policy (none otherwise), fedavg_reduce exactly one
+   an epoch over two row groups when compacted (one when dense); the ideal
+   channel rows bit for bit the static stream rows and the lossy rows'
+   delivery semantics (``channel_bench_torch.check_ideal_bitmatch``),
+   under cuDNN's deterministic algorithms as the benches run.  The fleet
+   rows from one NCCL rank, then 4 gloo ranks on the card at N = 1024.
+   Each suite's wall time.
 8. Last: one JSON line listing every ported kernel, then the result line.
 
 TF32 is switched off for cuDNN convolutions and matmuls, so the GPU runs
@@ -423,6 +435,10 @@ ROUTED_PARAM_ATOL, ROUTED_STEP_ATOL = 1e-6, STEP_ATOL
 # 0.1, 2 seeds); the full grid is not run.
 QUICK_EPOCHS, QUICK_GALLERY_EPOCHS = 10, 4
 DRIVER_CELL = ("vaoi", 0.1, 0.1)
+# Phase 15, the bench suite: the harness's suites at their quick protocols,
+# and the fleet bench once more over BENCH_GLOO_RANKS gloo ranks on the card
+BENCH_SUITES = ("kernels", "stream", "channel", "fleet")
+BENCH_GLOO_RANKS, BENCH_GLOO_N = 4, 1024
 
 
 def log(msg: str) -> None:
@@ -2991,6 +3007,99 @@ def phase_drivers(torch, dev, ops, smi):
     return {"quickstart": q_launches, "grid_cell": g_launches}
 
 
+def bench_row_launches(cfg, launches, row_groups) -> dict | None:
+    """What one stream or channel row of the bench suite must launch: one
+    vaoi_distance an epoch under a VAoI policy, one fedavg_reduce an epoch
+    over two row groups when compacted (the slab and the old-carrier stack)
+    or one when dense; the expectation, where the row missed it."""
+    want = {"vaoi_distance": cfg.epochs * cfg.policy.startswith("vaoi"), "fedavg_reduce": cfg.epochs,
+            "ssd_scan": 0, "swa_attention": 0}
+    groups = cfg.epochs * (2 if cfg.compact == "auto" else 1)
+    return None if launches == want and row_groups == groups else {"launches": want, "row_groups": groups}
+
+
+def phase_bench_suite(torch, dev, ops, smi):
+    """Phase 15: the bench suite on the card.  The BENCH_SUITES of
+    benchmarks/run_torch.py at their quick protocols through its suite
+    functions, their files written to a temp directory; each stream and
+    channel row's launches counted (``bench_row_launches``); every file
+    held to tools/check_bench.py's schema and the channel file to the
+    stream file (``check_ideal_bitmatch``); then the fleet bench over
+    BENCH_GLOO_RANKS gloo ranks on the card.  Returns the kernels suite's
+    rows and the launches summed over the stream and channel rows."""
+    import importlib.util
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from benchmarks import channel_bench_torch as channel_bench
+    from benchmarks import fleet_bench_torch as fleet_bench
+    from benchmarks import run_torch
+    from benchmarks import stream_bench_torch as stream_bench
+
+    spec = importlib.util.spec_from_file_location("check_bench", root / "tools" / "check_bench.py")
+    check_bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_bench)
+
+    counted, run_cell = [], stream_bench.run_cell
+
+    def counted_cell(cfg, *args, **kw):
+        ops.reset_launch_counts()
+        out = run_cell(cfg, *args, **kw)
+        counted.append((cfg, ops.launch_counts(), ops.row_group_count()))
+        return out
+
+    seconds, rows = {}, {}
+    mods = {"stream": stream_bench, "channel": channel_bench, "fleet": fleet_bench}
+    with tempfile.TemporaryDirectory(prefix="bench-suite-") as tmp:
+        outs = {name: mod.OUT for name, mod in mods.items()}
+        stream_bench.run_cell = counted_cell
+        for name, mod in mods.items():
+            mod.OUT = Path(tmp) / outs[name].name
+        try:
+            for name in BENCH_SUITES:
+                t0 = time.perf_counter()
+                rows[name] = run_torch.SUITES[name](True, dev)
+                seconds[name] = time.perf_counter() - t0
+                log(json.dumps({"phase": f"p15_{name}", "wall_s": seconds[name], "rows": rows[name],
+                                "power_limit": smi}))
+            docs = {name: json.loads(mod.OUT.read_text()) for name, mod in mods.items()}
+            errors = []
+            for name, mod in mods.items():
+                check_bench.check_schema(mod.OUT, docs[name], errors)
+        finally:
+            stream_bench.run_cell = run_cell
+            for name, mod in mods.items():
+                mod.OUT = outs[name]
+    for name, doc in docs.items():
+        log(json.dumps({"phase": f"p15_{name}_file", "header": {k: v for k, v in doc.items() if k != "rows"},
+                        "rows": doc["rows"]}))
+    grid_rows = len(docs["stream"]["rows"]) + len(docs["channel"]["rows"])
+    missed = [(dataclasses.asdict(cfg), n, g, want) for cfg, n, g in counted
+              if (want := bench_row_launches(cfg, n, g))]
+    errors += channel_bench.check_ideal_bitmatch(docs["stream"], docs["channel"])
+    fleet_rows = docs["fleet"]["rows"]
+    t0 = time.perf_counter()
+    gloo_rows, _, ranks = fleet_bench.bench((BENCH_GLOO_N,), shards=BENCH_GLOO_RANKS, backend="gloo", device=dev)
+    seconds["fleet_gloo"] = time.perf_counter() - t0
+    totals = {k: sum(n[k] for _, n, _ in counted) for k in ops.launch_counts()}
+    log(json.dumps({
+        "phase": "p15_bench_suite", "suites": list(BENCH_SUITES), "suite_wall_s": seconds,
+        "grid_rows": grid_rows, "counted_rows": len(counted), "rows_per_s": {
+            name: len(docs[name]["rows"]) / seconds[name] for name in ("stream", "channel", "fleet")},
+        "launches_stream_channel": totals, "rows_with_wrong_launches": missed,
+        "fleet_nccl": {"dist_backend": docs["fleet"]["dist_backend"], "ranks": docs["fleet"]["ranks"],
+                       "rows": fleet_rows},
+        "fleet_gloo": {"ranks": ranks, "rows": gloo_rows}, "file_errors": errors, "power_limit": smi,
+    }))
+    if (errors or missed or len(counted) != grid_rows or docs["fleet"]["dist_backend"] != "nccl"
+            or {r["shards"] for r in gloo_rows} != {BENCH_GLOO_RANKS} or len(gloo_rows) != 2):
+        raise AssertionError(f"phase 15: file errors {errors}, rows with wrong launches {missed}, "
+                             f"{len(counted)} counted rows of {grid_rows}, or the fleet rows are wrong")
+    return rows["kernels"], totals
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--epochs", type=int, default=10, help="depth T of the paper-width run (paper: 500)")
@@ -3155,6 +3264,11 @@ def main() -> int:
                                            make_federated_dataset))
     seconds["10"] = time.perf_counter() - t0
 
+    # --- phase 15: the bench suite ---
+    t0 = time.perf_counter()
+    bench_kernel_rows, bench_launches = phase_bench_suite(torch, dev, ops, smi)
+    seconds["15"] = time.perf_counter() - t0
+
     # --- phase 8: every ported kernel, then the result ---
     def entry(name, source, replaces, rows, count):
         out = {
@@ -3221,6 +3335,9 @@ def main() -> int:
     for e in (*ehfl, ssd, swa):  # phase 13: 13a at published width, 13b at reduced() per arch
         e.update(launches_phase13=routed_launches[e["name"]],
                  launches_phase13b={arch: n[e["name"]] for arch, n in routed_reduced_launches.items()})
+    for e in (*ehfl, ssd, swa):  # phase 15: the kernels bench's rows, the stream and channel rows' launches
+        e.update(phase15_bench_rows=[r for r in bench_kernel_rows if r["name"].startswith(f"kernel/{e['name']}/")],
+                 launches_phase15=bench_launches[e["name"]])
     log(json.dumps({"phase_seconds": seconds, "total_s": time.perf_counter() - start}))
     log(json.dumps({"kernels": [
         *ehfl,

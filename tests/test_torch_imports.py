@@ -5,6 +5,7 @@ nothing in ``chip_smoke.py`` or the tools that drive it
 ``jax`` or the JAX package ``repro``; and its entry points never quietly
 fall back to the CPU."""
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -50,6 +51,7 @@ def test_no_jax_or_reference_imports(path):
         "run_simulation", "run_batch", "init_carry", "make_federated_dataset",
         "decoder.init_params", "decoder.init_cache", "decoder_params_from_reference",
         "starcoder2.init_params", "starcoder2.init_cache", "starcoder2.params_from_reference",
+        "stream_bench_torch.run", "channel_bench_torch.run", "fleet_bench_torch.run", "kernels_bench_torch.run",
     ],
 )
 def test_entry_points_raise_without_cuda(entry, monkeypatch):
@@ -59,6 +61,9 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
     from repro_torch.data import make_federated_dataset
     from repro_torch.fl import cnn_backend
     from repro_torch.models import decoder
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import channel_bench_torch, fleet_bench_torch, kernels_bench_torch, stream_bench_torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tiny = CNNConfig(image_size=8, conv_channels=(2, 2, 2, 2, 2, 2), fc_dims=(4, 4))
@@ -76,6 +81,10 @@ def test_entry_points_raise_without_cuda(entry, monkeypatch):
         "starcoder2.params_from_reference": lambda: decoder_params_from_reference({"blocks": ({},)}, sc),
         "init_carry": lambda: init_carry(cfg, cnn_backend(tiny)),
         "make_federated_dataset": lambda: make_federated_dataset(0, num_clients=2, samples_per_client=2),
+        "stream_bench_torch.run": lambda: stream_bench_torch.run(True),
+        "channel_bench_torch.run": lambda: channel_bench_torch.run(True),
+        "fleet_bench_torch.run": lambda: fleet_bench_torch.run(True),
+        "kernels_bench_torch.run": lambda: kernels_bench_torch.run(True),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
