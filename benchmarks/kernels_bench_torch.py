@@ -29,10 +29,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
-
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # H100 SXM data sheet, defined once there
+from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_FLOPS
 
 WINDOW = 256
 SLAB = 10  # the compacted path's training slab: the paper's k

@@ -6,7 +6,8 @@ Prints ``name,us_per_call,derived`` CSV.  Default is the quick protocol
 grids.  The ``fleet``, ``stream`` and ``channel`` suites also write
 ``BENCH_fleet_torch.json``, ``BENCH_stream_torch.json`` and
 ``BENCH_channel_torch.json`` at the repo root.  Every suite runs on the
-card unless ``--device cpu`` says otherwise.
+card unless ``--device cpu`` says otherwise; ``roofline`` reads the
+dry-run's records (``experiments/dryrun_torch/``) and runs nothing.
 
 Every suite runs under a wall-clock watchdog (``--suite-timeout``, default
 900 s): a suite that hangs (a deadlocked collective, a runaway build) kills
@@ -36,7 +37,6 @@ def _suite(module: str) -> Callable:
     return run
 
 
-# `roofline` has no counterpart yet: it reports as an unknown suite
 SUITES: Dict[str, Callable] = {
     "kernels": _suite("kernels_bench_torch"),
     "fig4": _suite("fig4_f1_torch"),
@@ -46,6 +46,7 @@ SUITES: Dict[str, Callable] = {
     "fleet": _suite("fleet_bench_torch"),
     "stream": _suite("stream_bench_torch"),
     "channel": _suite("channel_bench_torch"),
+    "roofline": _suite("roofline_torch"),
 }
 
 

@@ -193,6 +193,18 @@ result line):
    under cuDNN's deterministic algorithms as the benches run.  The fleet
    rows from one NCCL rank, then 4 gloo ranks on the card at N = 1024.
    Each suite's wall time.
+16. The launch layer, after phase 15 (``LAUNCH_*``).  (a) In a child
+   process, ``python -m repro_torch.launch.dryrun`` for qwen1.5-0.5b x
+   train_4k at full shape (256 x 4096) on the 16 x 16 production mesh over
+   a fake group of 256 ranks (fake tensors of device type cuda: nothing is
+   allocated): per-device TFLOP, collective GB by kind, the roofline terms
+   under the H100's constants, the trace time, and ``run_torch --only
+   roofline``'s row for the record.  (b) One NCCL rank: phase 12b's step
+   (4 x 2048, remat, chunked CE) on DTensors over the (1, 1) host mesh
+   against the same step on plain tensors, loss and every new leaf
+   compared; both timed (the DTensor step's extra time is DTensor's host
+   cost); the (1, 1) dry-run's per-device FLOPs for the step over the plain
+   step's time as a share of the bf16 peak.  The group is destroyed after.
 8. Last: one JSON line listing every ported kernel, then the result line.
 
 TF32 is switched off for cuDNN convolutions and matmuls, so the GPU runs
@@ -213,10 +225,11 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# H100 SXM published peaks, defined once with their source in the port
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_FLOPS  # noqa: E402
 
 # ssd_scan against ssd_scan_ref.  fp32 inputs (the FMA route): both read the
 # same inputs and accumulate in fp32 (the kernel by chunks, the plain version
@@ -439,6 +452,29 @@ DRIVER_CELL = ("vaoi", 0.1, 0.1)
 # and the fleet bench once more over BENCH_GLOO_RANKS gloo ranks on the card
 BENCH_SUITES = ("kernels", "stream", "channel", "fleet")
 BENCH_GLOO_RANKS, BENCH_GLOO_N = 4, 1024
+# Phase 16, the launch layer.  16a: the dry-run of LAUNCH_ARCH x train_4k at
+# full shape (256 x 4096) on the 16 x 16 production mesh over a fake group of
+# 256 ranks, in a child process, and run_torch's roofline row for its record.
+# 16b: phase 12b's step (LAUNCH_ARCH, bf16, seed 0, STEP_B x STEP_S, remat,
+# the chunked CE) on one NCCL rank, on DTensors over the (1, 1) host mesh and
+# on plain tensors, LAUNCH_RUNS timed steps each after a warm-up.  On one rank
+# every DTensor op runs the plain op on the whole tensor, but the DTensor
+# path takes its own forms at two places (models/spmd.py, models/common.py):
+# the CE's logsumexp as max, sum and log, and the embedding's lookup by
+# F.embedding (its backward adds the rows of repeated tokens in another
+# order).  So the gradients part by rounding, and a bf16 weight's update is
+# about one rounding step of the weight: where the exact update lies near a
+# rounding boundary the two steps round it apart.  Two H100 runs read the
+# loss bit for bit, 50 of 290 leaves bit for bit, and the largest gaps,
+# 0.013-0.020 of a leaf's largest element, at the attention biases ``bk``
+# and ``bv``: they start at zero, so after one step a bias is its update
+# alone and a gradient's rounding is a share of the whole leaf (``bk``'s
+# gradient is zero in exact arithmetic, as softmax ignores a shift shared
+# by every key, so both steps move it by rounding noise alone).  The loss
+# is held to LAUNCH_LOSS_RTOL relative and each new leaf to
+# LAUNCH_LEAF_RTOL (four bf16 rounding steps) of its largest element.
+LAUNCH_ARCH, LAUNCH_RUNS, LAUNCH_DRYRUN_TIMEOUT_S = "qwen1.5-0.5b", 3, 600
+LAUNCH_LOSS_RTOL, LAUNCH_LEAF_RTOL = 1e-5, 2.0 ** -5
 
 
 def log(msg: str) -> None:
@@ -3100,6 +3136,120 @@ def phase_bench_suite(torch, dev, ops, smi):
     return rows["kernels"], totals
 
 
+def phase_launch_layer(torch, dev, smi):
+    """Phase 16: the launch layer (``LAUNCH_*``).  16a: the dry-run at full
+    shape in a child process, its record printed and held (256 chips,
+    per-device FLOPs near the model's share, collectives of every kind
+    counted), then ``run_torch --only roofline``'s row for it.  16b: the
+    DTensor train step on one NCCL rank against the plain step, and the
+    (1, 1) dry-run's FLOPs over the plain step's time.  Returns the phase's
+    summary row."""
+    import datetime
+    import os
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    root = Path(__file__).resolve().parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from benchmarks import roofline_torch, run_torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import decoder
+
+    # 16a: the production dry-run, in its own process (it starts a fake group)
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        rec_path = Path(tmp) / f"{LAUNCH_ARCH}__train_4k__sp__fsdp.json"
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LAUNCH_ARCH, "--shape",
+                            "train_4k", "--out", str(rec_path)], capture_output=True, text=True, env=env,
+                           timeout=LAUNCH_DRYRUN_TIMEOUT_S, cwd=root)
+        child_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"phase 16a: the dry-run failed: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+        rec = json.loads(rec_path.read_text())
+        saved = roofline_torch.DRYRUN
+        roofline_torch.DRYRUN = Path(tmp)
+        try:
+            roof = run_torch.SUITES["roofline"](True, dev)
+        finally:
+            roofline_torch.DRYRUN = saved
+    coll = rec["collectives"]
+    row_a = {"phase": "p16a_dryrun", "arch": LAUNCH_ARCH, "shape": "train_4k", "mesh": rec["mesh"],
+             "n_chips": rec["n_chips"], "device_type": rec["device_type"], "tflop_per_device": rec["cost"]["flops"] / 1e12,
+             "unfused_gb_per_device": rec["cost"]["unfused_bytes"] / 1e9,
+             "collective_gb": {k: v / 1e9 for k, v in coll.items()}, "collective_counts": rec["collective_counts"],
+             "roofline": rec["roofline"], "useful_flop_ratio": rec["useful_flop_ratio"],
+             "model_flops_per_chip": rec["model_flops_per_chip"], "memory": rec["memory"], "lower_s": rec["lower_s"],
+             "child_wall_s": child_s, "roofline_rows": roof}
+    log(json.dumps(row_a))
+    ratio = rec["useful_flop_ratio"]
+    if (rec["n_chips"] != 256 or rec["device_type"] != "cuda" or not 0.5 <= ratio <= 1.0
+            or coll["all-gather"] <= 0 or coll["reduce-scatter"] <= 0 or coll["all-reduce"] <= 0
+            or len(roof) != 1 or roof[0]["name"] != f"roofline/{LAUNCH_ARCH}/train_4k/16x16/sp+fsdp"):
+        raise AssertionError(f"phase 16a: the dry-run's record is off: {row_a}")
+
+    # 16b: the DTensor step on one NCCL rank against the plain step
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = get_config(LAUNCH_ARCH)
+    with socket.socket() as sock:  # a free port for the rank's TCP store
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=FLEET_TIMEOUT_S))
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        params = decoder.init_params(cfg, seed=0, device=dev)
+        gb = torch.Generator(device=dev).manual_seed(6)
+        toks = torch.randint(0, cfg.vocab_size, (STEP_B, STEP_S), generator=gb, device=dev)
+        batch = {"tokens": toks, "labels": toks}
+        step = make_train_step(cfg, lr=TRAIN_ROUNDS["lr"], remat=True, ce_chunk=STEP_CHUNK)
+        dparams = sharding.distribute_params(params, mesh)
+        dbatch = sharding.distribute_inputs(batch, mesh)
+        loss_p, new_p = step(params, batch)
+        with implicit_replication():
+            loss_d, new_d = step(dparams, dbatch)
+            loss_d = loss_d.full_tensor()
+            new_d = {k: v.full_tensor() for k, v in decoder.flat_params(new_d).items()}
+        new_p = decoder.flat_params(new_p)
+        leaf_gap, exact = {}, 0
+        for k, v in new_p.items():
+            diff = (new_d[k].float() - v.float()).abs().max().item()
+            leaf_gap[k] = diff / max(v.float().abs().max().item(), 1e-30)
+            exact += bool(torch.equal(new_d[k], v))
+        loss_gap = abs(loss_d.item() - loss_p.item()) / abs(loss_p.item())
+        del new_d, new_p
+        _, plain_ms = train_step_timed(torch, step, params, batch, LAUNCH_RUNS)
+        with implicit_replication():
+            _, dtensor_ms = train_step_timed(torch, step, dparams, dbatch, LAUNCH_RUNS)
+        flops = dryrun.trace_step(cfg, InputShape("train", STEP_S, STEP_B, "train"), mesh, ce_chunk=STEP_CHUNK)[0]
+    finally:
+        dist.destroy_process_group()
+    worst = max(leaf_gap, key=leaf_gap.get)
+    top = sorted(leaf_gap.items(), key=lambda kv: -kv[1])[:6]
+    plain_med, dt_med = statistics.median(plain_ms), statistics.median(dtensor_ms)
+    row_b = {"phase": "p16b_dtensor_step", "arch": LAUNCH_ARCH, "mesh": "1x1", "batch": STEP_B, "seq": STEP_S,
+             "ce_chunk": STEP_CHUNK, "loss_plain": loss_p.item(), "loss_dtensor": loss_d.item(),
+             "loss_rel_gap": loss_gap, "loss_limit": LAUNCH_LOSS_RTOL, "leaves": len(leaf_gap),
+             "leaves_bit_equal": exact, "worst_leaf": worst, "worst_leaf_rel_gap": leaf_gap[worst], "worst_leaves": top,
+             "leaf_limit": LAUNCH_LEAF_RTOL, "plain_ms": plain_ms, "dtensor_ms": dtensor_ms,
+             "plain_median_ms": plain_med, "dtensor_median_ms": dt_med, "dtensor_host_cost_ms": dt_med - plain_med,
+             "dryrun_flops_1x1": flops["flops"], "dryrun_lower_s": flops["lower_s"],
+             "bf16_peak_share": flops["flops"] / (plain_med / 1e3) / BF16_FLOPS, "power_limit": smi}
+    log(json.dumps(row_b))
+    if not (math.isfinite(row_b["loss_dtensor"]) and loss_gap <= LAUNCH_LOSS_RTOL
+            and leaf_gap[worst] <= LAUNCH_LEAF_RTOL and flops["flops"] > 0):
+        raise AssertionError(f"phase 16b: the DTensor step parts from the plain step: {row_b}")
+    return {"dryrun": row_a, "dtensor_step": row_b}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--epochs", type=int, default=10, help="depth T of the paper-width run (paper: 500)")
@@ -3111,7 +3261,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import CONFIG
     from repro_torch.core.draws import TorchDraws
     from repro_torch.core import fleet
@@ -3268,6 +3417,12 @@ def main() -> int:
     t0 = time.perf_counter()
     bench_kernel_rows, bench_launches = phase_bench_suite(torch, dev, ops, smi)
     seconds["15"] = time.perf_counter() - t0
+
+    # --- phase 16: the launch layer ---
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_launch_layer(torch, dev, smi)
+    seconds["16"] = time.perf_counter() - t0
 
     # --- phase 8: every ported kernel, then the result ---
     def entry(name, source, replaces, rows, count):

@@ -1,6 +1,9 @@
 from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
+    InputShape,
     ModelConfig,
     get_config,
+    input_specs,
     list_configs,
     reduced,
     register,

@@ -5,7 +5,9 @@ Every ported arch gets a module ``src/repro_torch/configs/<id>.py`` that
 exports ``CONFIG`` (the exact published spec).  ``reduced()`` derives the
 CPU smoke-test variant with exactly the reference's reduced fields.  The
 registry loads every arch module in ``_ARCH_MODULES``: the reference's
-archs, all of them.
+archs, all of them.  ``INPUT_SHAPES`` and ``input_specs()`` give the
+dry-run's (arch, input shape) pairs as shape-and-dtype stand-ins on the
+``meta`` device (no allocation).
 """
 from __future__ import annotations
 
@@ -15,6 +17,26 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's four)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -130,6 +152,15 @@ class ModelConfig:
             total += self.num_layers * (d * nh * hd + 2 * d * nkv * hd + nh * hd * d + 2 * d)
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only the routed top-k and the
+        shared experts), the reference's count."""
+        if self.num_experts == 0:
+            return self.param_count()
+        n_moe_layers = sum(1 for i in range(self.num_layers) if self.layer_moe(i))
+        inactive = (self.num_experts - self.experts_per_token) * 3 * self.d_model * self.d_ff * n_moe_layers
+        return self.param_count() - inactive
+
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant of the same family: <=2 layers (respecting the
@@ -168,6 +199,40 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.num_prefix_tokens > 0:
         changes.update(num_prefix_tokens=8)
     return dataclasses.replace(cfg, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (shape-and-dtype stand-ins on the meta device; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, torch.Tensor]:
+    """The abstract inputs of one (arch, input shape) pair, as ``meta``
+    tensors with the reference's keys, shapes and dtypes.
+
+    train/prefill: token ids (and labels for train) (B, S); a VLM adds its
+    prefix embeddings and an encoder-decoder its frames (the frontends'
+    outputs, not raw media), both in ``cfg.dtype``.  decode: one new token
+    per sequence and its position; the caller builds the cache."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(dims, dtype) -> torch.Tensor:
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: Dict[str, torch.Tensor] = {}
+    if shape.kind == "train":
+        specs["tokens"] = spec((B, S), torch.int32)
+        specs["labels"] = spec((B, S), torch.int32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = spec((B, S), torch.int32)
+    else:
+        specs["tokens"] = spec((B, 1), torch.int32)
+        specs["positions"] = spec((B,), torch.int32)
+    if cfg.num_prefix_tokens > 0 and shape.kind != "decode":
+        specs["prefix_embeddings"] = spec((B, cfg.num_prefix_tokens, cfg.d_model), cfg.dtype)
+    if cfg.is_encoder_decoder:
+        specs["encoder_frames"] = spec((B, cfg.encoder_seq, cfg.d_model), cfg.dtype)
+    return specs
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The fleet's process group: how many shards, and the processes that run them.
+"""Meshes of the port: the fleet's process group, the production and host
+``DeviceMesh``es of the launch layer, and the H100's roofline constants.
 
 The counterpart of ``repro.launch.mesh.make_fleet_mesh``: the JAX package
 shards the client axis over a 1-D ``data`` mesh, the port over the ranks of
@@ -10,6 +11,13 @@ one rank per card, or gloo, on the CPU or with several ranks on one card
 (NCCL refuses two ranks on one GPU).  Under ``torchrun`` the launcher has
 started the processes already, and each calls
 ``torch.distributed.init_process_group`` itself.
+
+The counterparts of ``repro.launch.mesh.make_production_mesh`` and
+``make_host_mesh`` are ``DeviceMesh``es over the ranks of the process
+group the caller initialized: 256 or 512 ranks of the ``fake`` backend for
+the dry-run (``launch/dryrun.py``), or real ranks (gloo on the CPU, NCCL a
+rank a card) for a sharded step.  They are functions, so importing this
+module touches no process group.
 """
 from __future__ import annotations
 
@@ -22,6 +30,18 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+# Roofline constants of one NVIDIA H100 SXM5 80GB, the cluster the dry-run
+# models (they replace the reference's TPU v5e figures).  From NVIDIA's H100
+# data sheet, dense rates without sparsity, at the 700 W limit:
+PEAK_FLOPS_BF16 = 989e12  # bf16 tensor-core FLOP/s
+PEAK_FLOPS_FP32 = 67e12  # fp32 FLOP/s outside the tensor cores
+HBM_BW = 3.35e12  # HBM3 bytes/s
+# The collective term's rate per GPU: one 400 Gb/s NDR InfiniBand port
+# (ConnectX-7) per GPU in a DGX H100, 50e9 bytes/s.  A 16-wide ``model``
+# axis spans two 8-GPU nodes, so the inter-node link bounds its
+# collectives.  Inside a node NVLink 4 gives 450e9 bytes/s a direction.
+NET_BW = 50e9
 
 
 def fleet_shards(num_clients: int, num_shards: int | None = None) -> int:
@@ -81,3 +101,42 @@ def spawn_fleet(
                 if p.is_alive():
                     p.terminate()
                 p.join(timeout=30)
+
+
+def data_axes(mesh) -> tuple:
+    """The batch-sharding axes of a mesh: ("pod", "data") when multi-pod."""
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def _mesh(device_type: str, shape: tuple, names: tuple):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {shape} mesh needs an initialized process group of {n} ranks (real or fake)")
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks; the process group has {dist.get_world_size()}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a cuda mesh needs CUDA; pass device_type='cpu' for a CPU mesh")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """(16, 16) over ("data", "model") = 256 GPUs, or (2, 16, 16) over
+    ("pod", "data", "model") = 512, over the initialized process group."""
+    if multi_pod:
+        return _mesh(device_type, (2, 16, 16), ("pod", "data", "model"))
+    return _mesh(device_type, (16, 16), ("data", "model"))
+
+
+def make_host_mesh(model_parallel: int = 1, device_type: str = "cuda"):
+    """(world / model_parallel, model_parallel) over ("data", "model"): every
+    rank of the initialized process group."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_host_mesh needs an initialized process group")
+    world = dist.get_world_size()
+    if world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} does not divide {world} ranks")
+    return _mesh(device_type, (world // model_parallel, model_parallel), ("data", "model"))

@@ -12,7 +12,9 @@ prefill    : full-sequence forward, last-position logits (serving prefill),
 serve_step : single-token decode against the SSM and KV caches (and an
              encoder-decoder's cross K/V planes, or ``encoder_out``).
 
-Prefill and serve steps run under ``torch.inference_mode()``.
+Prefill and serve steps run under ``torch.inference_mode()``, or
+``torch.no_grad()`` on DTensor params (DTensor's ops do not take inference
+tensors).
 """
 from __future__ import annotations
 
@@ -21,8 +23,13 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decoder
+from repro_torch.models import decoder, spmd
 from repro_torch.optim import sgd_update
+
+
+def _no_grad(params):
+    """``inference_mode`` for plain params; ``no_grad`` for DTensors."""
+    return torch.no_grad() if spmd.is_dtensor(params["embed"]) else torch.inference_mode()
 
 
 def make_train_step(
@@ -53,7 +60,7 @@ def make_train_step(
 
 def make_prefill_step(cfg: ModelConfig, use_kernel: bool = True):
     def prefill(params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        with torch.inference_mode():
+        with _no_grad(params):
             logits, _ = decoder.forward_logits(
                 cfg,
                 params,
@@ -74,7 +81,7 @@ def make_serve_step(cfg: ModelConfig, rolling: bool = False, with_encoder: bool 
     if with_encoder:
 
         def serve_step(params, cache, tokens: torch.Tensor, positions: torch.Tensor, encoder_out: torch.Tensor):
-            with torch.inference_mode():
+            with _no_grad(params):
                 return decoder.decode_step(
                     cfg, params, cache, tokens, positions, rolling=rolling, encoder_out=encoder_out
                 )
@@ -82,7 +89,7 @@ def make_serve_step(cfg: ModelConfig, rolling: bool = False, with_encoder: bool 
     else:
 
         def serve_step(params, cache, tokens: torch.Tensor, positions: torch.Tensor):
-            with torch.inference_mode():
+            with _no_grad(params):
                 return decoder.decode_step(cfg, params, cache, tokens, positions, rolling=rolling)
 
     return serve_step

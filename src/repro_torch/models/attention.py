@@ -24,6 +24,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import spmd
 from repro_torch.models.common import Params, apply_rope, dense_init
 
 
@@ -46,18 +47,45 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) 
     return p
 
 
-def _project_qkv(cfg: ModelConfig, p: Params, xq: torch.Tensor, xkv: torch.Tensor):
-    B = xq.shape[0]
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _project_flat(cfg: ModelConfig, p: Params, xq: torch.Tensor, xkv: torch.Tensor):
+    """q (B, Sq, nh*hd), k and v (B, Sk, nkv*hd): the projections before the
+    heads are split."""
     q = xq @ p["wq"]
     k = xkv @ p["wk"]
     v = xkv @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, xq.shape[1], nh, hd)
-    k = k.reshape(B, xkv.shape[1], nkv, hd)
-    v = v.reshape(B, xkv.shape[1], nkv, hd)
     return q, k, v
+
+
+def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, S, H*hd) -> (B, S, H, hd), H from the shape (a rank's own heads
+    when the heads are sharded)."""
+    return x.reshape(x.shape[0], x.shape[1], -1, hd)
+
+
+def _repeat_kv(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """A DTensor (B, S, nkv*hd) -> (B, S, nh*hd): KV head i repeated for
+    query heads i*g .. i*g + g - 1 (query head h reads KV head h // g,
+    g = nh / nkv)."""
+    B, S = x.shape[:2]
+    nkv, hd, g = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    x = spmd.to_batch_layout(x)  # whole KV heads on every model rank first
+    return x.reshape(B, S, nkv, 1, hd).expand(B, S, nkv, g, hd).reshape(B, S, nkv * g * hd)
+
+
+def heads_spec(cfg: ModelConfig, mesh) -> tuple:
+    """The layout of (B, S, H*hd) activations around the attention core:
+    batch over the data axes, and heads over ``model`` when both the query
+    and the KV heads divide over it (a rank then holds whole GQA groups);
+    else every model rank holds all heads (``attn_forward`` then repeats
+    the KV heads where the query heads alone divide).  None without a
+    mesh."""
+    if mesh is None:
+        return None
+    m = spmd.model_size(mesh)
+    heads = "model" if cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0 else None
+    return (spmd.BATCH, None, heads)
 
 
 @functools.cache
@@ -135,32 +163,57 @@ def attn_forward(
     ``use_kernel`` says (see the module's docstring)."""
     cross = encoder_out is not None
     with record_function("lm.qkv"):
-        q, k, v = _project_qkv(cfg, p, x, encoder_out if cross else x)
+        q, k, v = _project_flat(cfg, p, x, encoder_out if cross else x)
+    causal = causal and not cross
+    mesh = spmd.mesh_of(q)
+    spec = heads_spec(cfg, mesh)
+    if spec is not None and spec[2] is None and cfg.num_heads % spmd.model_size(mesh) == 0:
+        # the query heads divide over ``model`` but the KV heads do not: each
+        # KV head repeated for its query group, so a rank holds whole groups
+        k, v = _repeat_kv(cfg, k), _repeat_kv(cfg, v)
+        spec = (spmd.BATCH, None, "model")
+    out = spmd.local(
+        lambda q_, k_, v_: _attend(cfg, q_, k_, v_, positions, causal, window, cross, use_kernel),
+        spec, (spec, spec, spec), q, k, v,
+    )
+    with record_function("lm.out_proj"):
+        return _out_proj(cfg, p, out)
+
+
+def _attend(
+    cfg: ModelConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    positions: torch.Tensor,
+    causal: bool,
+    window: int,
+    cross: bool,
+    use_kernel: bool,
+) -> torch.Tensor:
+    """The attention core on (B, S, H*hd) projections -> (B, Sq, H*hd):
+    the heads split, RoPE, then the kernel or the plain masked softmax."""
+    hd = cfg.head_dim
+    q, k, v = _split_heads(q, hd), _split_heads(k, hd), _split_heads(v, hd)
+    with record_function("lm.qkv"):
         if cfg.use_rope and not cross:
             pos_b = positions if positions.dim() == 2 else positions[None, :]
             q = apply_rope(q, pos_b, cfg.rope_theta)
             k = apply_rope(k, pos_b, cfg.rope_theta)
-    causal = causal and not cross
     B, S, nh, hd = q.shape
     with record_function("lm.attn"):
         if use_kernel and not cross:
             o = kops.swa_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window if causal else 0, causal=causal
             )
-            out = o.transpose(1, 2).reshape(B, S, nh * hd)
-        elif S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
+            return o.transpose(1, 2).reshape(B, S, nh * hd)
+        if S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
             # one q chunk at a time; never materialise the (S, S) scores
-            out = torch.cat(
+            return torch.cat(
                 [_masked_softmax_attn(q[:, i : i + Q_CHUNK], k, v, i, causal, window) for i in range(0, S, Q_CHUNK)],
                 dim=1,
             )
-        else:
-            out = _masked_softmax_attn(q, k, v, 0, causal, window)
-    with record_function("lm.out_proj"):
-        out = out @ p["wo"]
-        if cfg.attn_out_bias:
-            out = out + p["bo"]
-        return out
+        return _masked_softmax_attn(q, k, v, 0, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -181,12 +234,42 @@ def cross_kv(cfg: ModelConfig, p: Params, encoder_out: torch.Tensor) -> Tuple[to
     return k.reshape(B, S, nkv, hd), v.reshape(B, S, nkv, hd)
 
 
-def _unmasked_out(cfg: ModelConfig, p: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _unmasked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int) -> torch.Tensor:
+    """Unmasked attention of flat q (B, Sq, H*hd) over k, v (B, Sk, Hkv, hd)
+    -> (B, Sq, H*hd)."""
+    q = _split_heads(q, hd)
     attn = torch.softmax(_gqa_scores(q, k).float(), dim=-1).to(q.dtype)
-    out = _gqa_out(attn, v) @ p["wo"]
+    return _gqa_out(attn, v)
+
+
+def _out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
+    out = o @ p["wo"]
     if cfg.attn_out_bias:
         out = out + p["bo"]
     return out
+
+
+def _plane_spec(spec):
+    """The (B, S, Hkv, hd) planes' layout beside (B, S, H*hd) activations of
+    ``spec``: the same batch and heads axes."""
+    return None if spec is None else (spec[0], None, spec[2], None)
+
+
+def _cross_unmasked(
+    cfg: ModelConfig, p: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, flat_kv: bool = False
+) -> torch.Tensor:
+    """q (B, Sq, H*hd) over k, v planes (B, Sk, Hkv, hd), or flat
+    (B, Sk, Hkv*hd) projections with ``flat_kv``, then ``wo``."""
+    hd = cfg.head_dim
+    spec = heads_spec(cfg, spmd.mesh_of(q))
+    kv = spec if flat_kv else _plane_spec(spec)
+
+    def core(q_, k_, v_):
+        if flat_kv:
+            k_, v_ = _split_heads(k_, hd), _split_heads(v_, hd)
+        return _unmasked_core(q_, k_, v_, hd)
+
+    return _out_proj(cfg, p, spmd.local(core, spec, (spec, kv, kv), q, k, v))
 
 
 def cross_decode_cached(
@@ -196,7 +279,7 @@ def cross_decode_cached(
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return _unmasked_out(cfg, p, q.reshape(x.shape[0], 1, cfg.num_heads, cfg.head_dim), ck, cv)
+    return _cross_unmasked(cfg, p, q, ck, cv)
 
 
 def init_kv_cache(
@@ -225,21 +308,46 @@ def attn_decode(
     Cross-attention (``encoder_out`` given) projects the encoder's K/V here
     and returns the cache as it came."""
     if encoder_out is not None:
-        q, k, v = _project_qkv(cfg, p, x, encoder_out)
-        return _unmasked_out(cfg, p, q, k, v), cache
-    q, k, v = _project_qkv(cfg, p, x, x)  # (B,1,*,hd)
+        q, k, v = _project_flat(cfg, p, x, encoder_out)
+        return _cross_unmasked(cfg, p, q, k, v, flat_kv=True), cache
+    q, k, v = _project_flat(cfg, p, x, x)  # (B,1,*)
+    spec = heads_spec(cfg, spmd.mesh_of(q))
+    plane = _plane_spec(spec)
+    o, ck, cv = spmd.local(
+        lambda *a: _decode_core(cfg, *a, rolling),
+        [spec, plane, plane],
+        (spec, spec, spec, plane, plane, None if spec is None else (spmd.BATCH,)),
+        q, k, v, cache["k"], cache["v"], positions,
+    )
+    return _out_proj(cfg, p, o), {"k": ck, "v": cv}
+
+
+def _decode_core(
+    cfg: ModelConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    positions: torch.Tensor,
+    rolling: bool,
+):
+    """The new token's K/V written to the cache and its attention over it:
+    flat (B, 1, H*hd) q, k, v -> (flat output, new K, new V)."""
+    hd = cfg.head_dim
+    q, k, v = _split_heads(q, hd), _split_heads(k, hd), _split_heads(v, hd)
     if cfg.use_rope:
         q = apply_rope(q, positions[:, None], cfg.rope_theta)
         k = apply_rope(k, positions[:, None], cfg.rope_theta)
-    B, W = x.shape[0], cache["k"].shape[1]
+    B, W = q.shape[0], cache_k.shape[1]
     slot = torch.remainder(positions, W) if rolling else torch.clamp(positions, max=W - 1)
     # The reference writes with a one-hot blend, buf·(1 - onehot) + new·onehot;
     # for finite inputs that is this write of the new row at ``slot``.
-    rows = (torch.arange(B, device=x.device), slot)
-    ck = cache["k"].index_put(rows, k[:, 0])
-    cv = cache["v"].index_put(rows, v[:, 0])
+    rows = (torch.arange(B, device=q.device), slot)
+    ck = cache_k.index_put(rows, k[:, 0])
+    cv = cache_v.index_put(rows, v[:, 0])
     scores = _gqa_scores(q, ck).float()  # (B, nh, 1, W)
-    slots = torch.arange(W, device=x.device)[None, :]  # (1, W)
+    slots = torch.arange(W, device=q.device)[None, :]  # (1, W)
     if rolling:
         # slot j holds absolute position p_j = pos - ((pos - j) mod W); valid if
         # p_j >= 0 (torch.remainder, like jnp.mod, takes the divisor's sign)
@@ -248,8 +356,5 @@ def attn_decode(
     else:
         valid = slots <= positions[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
-    attn = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _gqa_out(attn, cv) @ p["wo"]
-    if cfg.attn_out_bias:
-        out = out + p["bo"]
-    return out, {"k": ck, "v": cv}
+    attn = torch.softmax(scores, dim=-1).to(q.dtype)
+    return _gqa_out(attn, cv), ck, cv

@@ -8,6 +8,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import spmd
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -105,7 +107,15 @@ def softmax_cross_entropy_per_token(
     gold logit.  ``impl="gather"`` reads the gold logit with ``gather``;
     ``impl="onehot"`` sums the logits under a mask of the label's column
     (the reference's form for vocab-sharded logits).  The two are the same
-    function: the mask's sum has one nonzero term."""
+    function: the mask's sum has one nonzero term.
+
+    On a DTensor whose vocab dim may be sharded, neither ``logsumexp`` nor
+    ``gather`` keeps the shards (the one gathers the whole logits, the
+    other cannot index them), so both impls take the vocab-parallel form:
+    the max, the sum of exponentials and the masked gold logit are reduced
+    over the shards as partial results, B·S numbers each."""
+    if spmd.is_dtensor(logits):
+        return _vocab_parallel_ce(logits.float(), labels)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     if impl == "onehot":
@@ -116,6 +126,17 @@ def softmax_cross_entropy_per_token(
     else:
         raise ValueError(f"impl must be 'gather' or 'onehot'; got {impl!r}")
     return logz - gold
+
+
+def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    m = spmd.to_batch_layout(m)
+    logz = torch.log(spmd.to_batch_layout(torch.exp(logits - m).sum(dim=-1))) + m.squeeze(-1)
+    onehot = (labels.unsqueeze(-1) == spmd.arange_like_last(logits)).to(logits.dtype)
+    gold = spmd.to_batch_layout((logits * onehot).sum(dim=-1))
+    # the (B, S) gradient comes back in the batch layout, so its broadcast
+    # over the vocab stays on each rank's columns
+    return spmd.tp_input(logz - gold)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, impl: str = "gather") -> torch.Tensor:

@@ -15,6 +15,12 @@ encoder-decoder adds ``enc_layers``, ``enc_pos_embed`` and
 Training (``loss_fn``, ``forward_hidden``) runs the plain forms under
 autograd, as the reference differentiates its plain ``jnp`` forms; the
 kernels serve inference (prefill, the feature taps).
+
+The same functions run on DTensor params and inputs laid out by
+``launch/sharding.py`` (the dry-run, the sharded steps); ``models/spmd.py``
+names the layouts the propagation cannot find by itself.
+:func:`set_activation_shardings` pins the (B, S, d) activations and the
+logits to set placements at the reference's seven points.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -29,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import spmd
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.common import (
     Params,
@@ -42,6 +50,48 @@ from repro_torch.models.common import (
 )
 
 Cache = List[Dict[str, torch.Tensor]]
+
+# ---------------------------------------------------------------------------
+# Activation layouts (set by the launcher; None on one device): the
+# reference's constraints, DTensor placements of the launcher's mesh.  The
+# per-layer FSDP gather and the sublayers' reductions already keep (B, S, d)
+# batch-sharded, so pinning it costs nothing where the layouts agree and
+# redistributes where a launcher asks for another.
+# ---------------------------------------------------------------------------
+
+_ACT_PLACEMENTS = None  # (B, S, d) activations
+_LOGITS_PLACEMENTS = None  # (B, S, V) logits
+
+
+def set_activation_shardings(act=None, logits=None) -> None:
+    """Pin 3-D activations (``act``) and logits (``logits``) to these
+    placements at the reference's constraint points; None unpins."""
+    global _ACT_PLACEMENTS, _LOGITS_PLACEMENTS
+    _ACT_PLACEMENTS = act
+    _LOGITS_PLACEMENTS = logits
+
+
+def _constrain(x: torch.Tensor, which: str = "act") -> torch.Tensor:
+    """A 3-D DTensor redistributed to the set placements; the identity on a
+    plain tensor or when none are set."""
+    pl = _ACT_PLACEMENTS if which == "act" else _LOGITS_PLACEMENTS
+    if pl is not None and spmd.is_dtensor(x) and x.dim() == 3:
+        return x.redistribute(x.device_mesh, pl)
+    return x
+
+
+def _embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  On DTensors the lookup takes the table with d over
+    ``model`` only (gathered from its vocab-over-model, d-over-data layout,
+    as FSDP gathers a weight before use) and the ids batch-sharded, so no
+    lookup maps ``data`` twice and no partial sum over the vocab shards
+    needs a backward; the rows come back in the batch-sharded layout."""
+    if not spmd.is_dtensor(table):
+        return table[ids]
+    mesh = table.device_mesh
+    d = "model" if table.shape[1] % spmd.model_size(mesh) == 0 else None
+    table = table.redistribute(mesh, spmd.placements(mesh, (None, d)))
+    return spmd.to_batch_layout(F.embedding(spmd.to_batch_layout(ids), table))
 
 
 def has_pos_embed(cfg: ModelConfig) -> bool:
@@ -150,9 +200,13 @@ def nest_params(flat: Dict[str, torch.Tensor]) -> Params:
     return lists(root)
 
 
+def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    """The LM head (V, d), its FSDP factor gathered on DTensors."""
+    return spmd.gather_fsdp(params["embed"] if cfg.tie_embeddings else params["lm_head"])
+
+
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.T.to(cfg.dtype)
+    return spmd.tp_input(x) @ _head(cfg, params).T.to(cfg.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -162,25 +216,28 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _ffn_residual(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x + the layer's MLP or MoE of norm2(x), and the MoE's aux loss (None
-    for an MLP layer)."""
+    for an MLP layer).  On DTensors every sublayer's output (a partial sum
+    over ``model`` after a row-parallel weight) is reduced to the
+    batch-sharded layout before the residual add, as Megatron-style tensor
+    parallelism does."""
     if cfg.d_ff == 0:
         return x, None
     with record_function("lm.norm"):
-        h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+        h = spmd.tp_input(apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps))
     if "moe" in p:
         with record_function("lm.moe"):
             f, aux = moe_lib.apply_moe(cfg, p["moe"], h)
-            return x + f, aux
+            return x + spmd.to_batch_layout(f), aux
     with record_function("lm.mlp"):
-        return x + apply_mlp(p["mlp"], h, cfg.act), None
+        return x + spmd.to_batch_layout(apply_mlp(p["mlp"], h, cfg.act)), None
 
 
 def _cross_residual(cfg: ModelConfig, p: Params, x: torch.Tensor, attend) -> torch.Tensor:
     """x + cross-attention of norm_cross(x), ``attend(p["cross"], h)``."""
     with record_function("lm.norm"):
-        h = apply_norm(cfg.norm, p["norm_cross"], x, cfg.norm_eps)
+        h = spmd.tp_input(apply_norm(cfg.norm, p["norm_cross"], x, cfg.norm_eps))
     with record_function("lm.cross"):
-        return x + attend(p["cross"], h)
+        return x + spmd.to_batch_layout(attend(p["cross"], h))
 
 
 def _run_block(
@@ -195,20 +252,25 @@ def _run_block(
     use_kernel: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One super-block of layers: x and the running aux loss through each
-    layer in order (the MoE layers add theirs)."""
+    layer in order (the MoE layers add theirs).  On DTensors each layer's
+    weights are gathered over the data axes first (FSDP)."""
+    sharded = spmd.is_dtensor(x)
     for p in layers:
+        if sharded:
+            p = spmd.gather_fsdp(p)
         with record_function("lm.norm"):
-            h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+            h = spmd.tp_input(apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps))
         if "attn" in p:
             a = attn_lib.attn_forward(cfg, p["attn"], h, positions, causal=causal, window=window, use_kernel=use_kernel)
         else:
             a = ssd_lib.ssd_forward(cfg, p["ssm"], h, use_kernel=use_kernel)
-        x = x + a
+        x = x + spmd.to_batch_layout(a)
         if encoder_out is not None and "cross" in p:
             x = _cross_residual(
                 cfg, p, x, lambda pc, hc: attn_lib.attn_forward(cfg, pc, hc, positions, encoder_out=encoder_out)
             )
         x, layer_aux = _ffn_residual(cfg, p, x)
+        x = _constrain(x)
         if layer_aux is not None:
             aux = aux + layer_aux
     return x, aux
@@ -244,7 +306,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, use_kernel: b
     then ``enc_final_norm``."""
     S = frames.shape[1]
     with record_function("lm.embed"):
-        x = frames + params["enc_pos_embed"][None, :S, :]
+        x = spmd.to_batch_layout(frames + params["enc_pos_embed"][None, :S, :])
     positions = torch.arange(S, device=x.device)
     x, _ = _run_stack(cfg, params["enc_layers"], x, positions, 0, False, None, use_kernel)
     with record_function("lm.norm"):
@@ -278,21 +340,22 @@ def forward_hidden(
         raise ValueError(f"{cfg.name} is an encoder-decoder: pass encoder_frames")
     S = tokens.shape[1]
     with record_function("lm.embed"):
-        x = params["embed"][tokens].to(cfg.dtype)
+        x = _embed(params["embed"], tokens).to(cfg.dtype)
         P = 0
         if prefix_embeddings is not None:
             P = prefix_embeddings.shape[1]
             x = torch.cat([prefix_embeddings.to(cfg.dtype), x], dim=1)
         if "pos_embed" in params:
             x = x + params["pos_embed"][None, : S + P, :].to(cfg.dtype)
+        x = _constrain(spmd.to_batch_layout(x))
     positions = torch.arange(S + P, device=x.device)
-    encoder_out = encode(cfg, params, encoder_frames, use_kernel) if cfg.is_encoder_decoder else None
+    encoder_out = spmd.tp_input(encode(cfg, params, encoder_frames, use_kernel)) if cfg.is_encoder_decoder else None
     x, aux = _run_stack(
         cfg, params["layers"], x, positions, cfg.sliding_window, True, encoder_out, use_kernel, remat
     )
     with record_function("lm.head"):
         x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-        return x[:, P:, :], aux
+        return _constrain(x[:, P:, :]), aux
 
 
 def forward_logits(
@@ -312,7 +375,7 @@ def forward_logits(
     with record_function("lm.head"):
         if last_only:
             x = x[:, -1:, :]
-        return _logits(cfg, params, x), aux
+        return _constrain(_logits(cfg, params, _constrain(x)), "logits"), aux
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +385,8 @@ def forward_logits(
 
 def _chunk_ce(x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, head: torch.Tensor, impl: str) -> torch.Tensor:
     """Σ w · CE over one chunk of positions: x (B, C, d), labels (B, C), w (C,)."""
-    return torch.sum(softmax_cross_entropy_per_token(x @ head, labels, impl) * w[None, :])
+    logits = _constrain(spmd.tp_input(x) @ head, "logits")
+    return torch.sum(softmax_cross_entropy_per_token(logits, labels, impl) * w[None, :])
 
 
 def loss_fn(
@@ -353,7 +417,7 @@ def loss_fn(
         ce = softmax_cross_entropy(logits[:, :-1], labels[:, 1:], impl=ce_impl)
         return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
     x, aux = forward_hidden(cfg, params, tokens, remat=remat, **inputs)
-    head = (params["embed"] if cfg.tie_embeddings else params["lm_head"]).T.to(cfg.dtype)
+    head = _head(cfg, params).T.to(cfg.dtype)
     xs, ls = x[:, :-1], labels[:, 1:]
     B, Sm1, d = xs.shape
     C = ce_chunk
@@ -484,11 +548,14 @@ def decode_step(
     skipped, as in the reference.  MoE layers route each token alone (one
     group of one token: nothing is dropped)."""
     roll = rolling or cfg.sliding_window > 0
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(params["embed"], tokens).to(cfg.dtype)
     if "pos_embed" in params:
-        x = x + params["pos_embed"][positions][:, None, :].to(cfg.dtype)
+        x = spmd.to_batch_layout(x + _embed(params["pos_embed"], positions)[:, None, :].to(cfg.dtype))
     new_cache = []
+    sharded = spmd.is_dtensor(x)
     for p, c in zip(params["layers"], cache):
+        if sharded:
+            p = spmd.gather_fsdp(p)
         h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
         planes = {k: c[k] for k in ("ck", "cv") if k in c}
         if "attn" in p:
@@ -496,7 +563,7 @@ def decode_step(
         else:
             a, c = ssd_lib.ssd_decode(cfg, p["ssm"], h, c)
         c = {**c, **planes}  # the static cross K/V planes stay in the cache
-        x = x + a
+        x = x + spmd.to_batch_layout(a)
         if "cross" in p and planes:
             x = _cross_residual(cfg, p, x, lambda pc, hc: attn_lib.cross_decode_cached(cfg, pc, hc, c["ck"], c["cv"]))
         elif "cross" in p and encoder_out is not None:

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import spmd
 from repro_torch.models.common import Params, apply_mlp, dense_init, init_mlp
 
 GROUP_SIZE = 512
@@ -114,12 +115,13 @@ def _experts(p: Params, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
-def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux loss fp32).  Tokens past an expert's
-    capacity in their group are dropped from that expert."""
+def _dispatch(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
+    """Route x (B, S, d) and write every choice to its slot: the experts'
+    input (E, B ng C, d), and for the combine each choice's row in it
+    (B, ng, G, k) and its gate (fp32, 0 where dropped); and the aux loss."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    r = route(cfg, p, x)
+    r = route(cfg, {"router": router}, x)
     G, ng, C = r.G, r.ng, r.C
     M = E * B * ng * C  # expert slots, expert-major: row ((e * B + b) * ng + g) * C + slot
     b_all = torch.arange(B, device=x.device)[:, None, None, None]
@@ -129,13 +131,43 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tenso
     # the spare row M, whose contents are discarded
     xk = x.reshape(B, ng, G, 1, d).expand(B, ng, G, k, d).reshape(B * ng * G * k, d)
     slots = torch.index_put(x.new_zeros(M + 1, d), (torch.where(r.keep, rows, M).reshape(-1),), xk)
-    ye = _experts(p, slots[:M].view(E, B * ng * C, d)).reshape(M, d)
-    # combine: each token's k outputs (a dropped choice reads its expert's
-    # slot 0 under gate 0) times its gates in the model dtype, added in fp32,
-    # rounded once
-    picked = ye.index_select(0, rows.reshape(-1)).view(B, ng, G, k, d)
     gates = torch.where(r.keep, r.top_vals, 0.0).to(x.dtype).float()
-    y = torch.einsum("bgtkd,bgtk->bgtd", picked.float(), gates).to(x.dtype).reshape(B, S, d)
+    return slots[:M].view(E, B * ng * C, d), rows, gates, r.aux
+
+
+def _combine(ye: torch.Tensor, rows: torch.Tensor, gates: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Each token's k expert outputs (a dropped choice reads its expert's
+    slot 0 under gate 0) times its gates in the model dtype, added in fp32,
+    rounded once: ye (E, B ng C, d) -> (B, S, d)."""
+    B, ng, G, k = rows.shape
+    d = ye.shape[-1]
+    picked = ye.reshape(-1, d).index_select(0, rows.reshape(-1)).view(B, ng, G, k, d)
+    return torch.einsum("bgtkd,bgtk->bgtd", picked.float(), gates).to(dtype).reshape(B, ng * G, d)
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux loss fp32).  Tokens past an expert's
+    capacity in their group are dropped from that expert.
+
+    On DTensors each batch shard routes and dispatches its own tokens
+    (routing is per sequence group, so this is the same function), the
+    expert products shard the experts over ``model`` (the slots' batch
+    stays over the data axes), and each shard combines its own tokens from
+    every expert's outputs; the aux loss is the mean of the shards'."""
+    B = x.shape[0]
+    tok = (spmd.BATCH, None, None, None)
+    slots, rows, gates, aux = spmd.local(
+        lambda x_, r_: _dispatch(cfg, x_, r_),
+        [(None, spmd.BATCH, None), tok, tok, spmd.PARTIAL_AVG],
+        [(spmd.BATCH, None, None), (None, None)],
+        x, p["router"], grad_sums=[None, "batch"],
+    )
+    ye = _experts(p, slots)
+    y = spmd.local(
+        lambda ye_, rows_, gates_: _combine(ye_, rows_, gates_, x.dtype),
+        (spmd.BATCH, None, None), [(None, spmd.BATCH, None), tok, tok],
+        ye, rows, gates, batch=B,
+    )
     if cfg.num_shared_experts > 0:
         y = y + apply_mlp(p["shared"], x, "silu")
-    return y, r.aux
+    return y, aux

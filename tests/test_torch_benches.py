@@ -231,9 +231,51 @@ def test_kernels_bench_bounds():
 
 def test_run_torch_fails_on_an_unknown_suite(capsys):
     with pytest.raises(SystemExit) as e:
-        run_torch.main(["--only", "roofline", "--device", "cpu"])
+        run_torch.main(["--only", "no_such_suite", "--device", "cpu"])
     assert e.value.code == 1
-    assert "roofline/ERROR,0,UnknownSuite" in capsys.readouterr().err
+    assert "no_such_suite/ERROR,0,UnknownSuite" in capsys.readouterr().err
+
+
+def _roofline_records(d: Path) -> None:
+    """Dry-run records in the reference's schema: one ok, one skipped, one
+    failed, under the dry-run's file names."""
+    ok = {"arch": "qwen1.5-0.5b", "shape": "train_4k", "mesh": "16x16", "mode": "fsdp",
+          "roofline": {"compute_s": 0.0123, "memory_s": 0.0456, "collective_s": 0.00789, "bottleneck": "memory"},
+          "useful_flop_ratio": 0.7512}
+    (d / "qwen1.5-0.5b__train_4k__sp__fsdp.json").write_text(json.dumps(ok))
+    (d / "qwen1.5-0.5b__train_4k__sp__fsdp__act__cechunk128.json").write_text(
+        json.dumps({**ok, "roofline": {**ok["roofline"], "collective_s": 0.5, "bottleneck": "collective"}}))
+    (d / "whisper-large-v3__long_500k__sp__fsdp.json").write_text(json.dumps(
+        {"arch": "whisper-large-v3", "shape": "long_500k", "mesh": "16x16", "skipped": "enc-dec: no analogue"}))
+    (d / "jamba-v0.1-52b__decode_32k__mp__tp.json").write_text(json.dumps(
+        {"arch": "jamba-v0.1-52b", "shape": "decode_32k", "mesh": "2x16x16", "error": "RuntimeError: x"}))
+
+
+def test_run_torch_roofline_rows_equal_the_reference(tmp_path, monkeypatch, capsys):
+    """``run_torch --only roofline`` over records in a monkeypatched
+    directory prints ``benchmarks/roofline.py::run``'s rows, name and value,
+    over the same records; an empty directory gives NO_DRYRUN_DATA."""
+    from benchmarks import roofline as jroofline
+    from benchmarks import roofline_torch
+
+    empty, full = tmp_path / "empty", tmp_path / "full"
+    empty.mkdir()
+    full.mkdir()
+    _roofline_records(full)
+    for d in (full, empty):
+        monkeypatch.setattr(jroofline, "DRYRUN", d)
+        monkeypatch.setattr(roofline_torch, "DRYRUN", d)
+        run_torch.main(["--only", "roofline", "--device", "cpu"])
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert lines[0] == "name,us_per_call,derived"
+        want = jroofline.run()
+        assert len(lines) - 1 == len(want)
+        for line, r in zip(lines[1:], want):
+            name, us, derived = line.split(",", 2)
+            assert (name, us) == (r["name"], f"{r['us_per_call']:.1f}")
+            if d is full:
+                assert derived == r["derived"]
+    assert [r["name"] for r in roofline_torch.run()] == ["roofline/NO_DRYRUN_DATA"]
 
 
 def test_run_torch_fails_a_suite_that_raises_and_runs_the_rest(monkeypatch, capsys):

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch/``, no torch
 example (``examples/*_torch.py``) or bench (``benchmarks/*_torch.py``) and
 nothing in ``chip_smoke.py`` or the tools that drive it
-(``tools/ehfl_step_survey.py``, ``tools/prefill_compare.py``) imports
+(``tools/ehfl_step_survey.py``, ``tools/prefill_compare.py``), nor the
+launch layer's inspection script (``experiments/perf/inspect_comms_torch.py``), imports
 ``jax`` or the JAX package ``repro``; and its entry points never quietly
 fall back to the CPU."""
 import ast
@@ -17,7 +18,8 @@ PORT_FILES = (
     sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     + sorted((ROOT / "examples").glob("*_torch.py"))
     + sorted((ROOT / "benchmarks").glob("*_torch.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "ehfl_step_survey.py", ROOT / "tools" / "prefill_compare.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "ehfl_step_survey.py", ROOT / "tools" / "prefill_compare.py",
+       ROOT / "experiments" / "perf" / "inspect_comms_torch.py"]
 )
 
 
