@@ -17,8 +17,17 @@ result line):
    device time under torch.profiler, without the wrapper's host time) and
    over ragged fp32/bf16 sweeps.  vaoi_distance at (100, 10) beside its
    launch floor (the wrapper's whole path into an empty kernel on the same
-   grid) and ``vector_norm``, the three timed in turns, and the wrapper
-   path's steps on the host clock; fedavg_reduce in the TPU kernel's signature at
+   plan, grid and cluster shape) and ``vector_norm``, the three timed in
+   turns, and the wrapper path's steps on the host clock; vaoi_distance's
+   wide route at (8, 151,936), (4, 102,400) and (1024, 4096) (VAOI_WIDE:
+   rows split over a thread-block cluster, 16-byte loads), each by event
+   and device time beside its launch floor and ``vector_norm`` in turns,
+   its byte bound and its plan; the vaoi sweep covers every plan (the
+   thread route, the cluster route at S = 1 to 16, rows off 16-byte
+   alignment), sets mu between the rows' m so both branches of Eq. 7 are
+   taken and the ages compared exactly, and holds two calls at F > 32
+   equal bit for bit;
+   fedavg_reduce in the TPU kernel's signature at
    (10, 845,738) and (100, 845,738) beside ``torch.mv``, then the main
    path's launch, the leaf table (the CNN's 18 leaves, a slab group of 10
    rows and an old-carrier group of 100, read in place), beside its byte
@@ -124,7 +133,7 @@ result line):
    layers, 4 clients x 16 sequences of 64 tokens, k = 2, kappa = 4, 3
    epochs: each epoch exactly one swa_attention launch per attention layer
    (the probe, on the tensor-core route), one vaoi_distance at (4, 102,400)
-   and ceil((13 L + 3) / 32) fedavg_reduce launches (the leaf table);
+   (the cluster route, 16 segments a row) and ceil((13 L + 3) / 32) fedavg_reduce launches (the leaf table);
    steady epoch time, clients and tokens trained per second, probe ms, the
    share of choices dropped at capacity, peak memory, one profiled epoch;
    the EHFL kernels at these shapes against their plain versions; the MoE
@@ -516,27 +525,32 @@ def interleaved_ms(fns: dict, iters: int, rounds: int = 4) -> dict:
     return {name: statistics.median(x) for name, x in samples.items()}
 
 
-def device_ms(fn, iters: int = 20) -> dict:
+def device_ms(fn, iters: int = 20, only: str | None = None) -> dict:
     """Device time per call of ``fn``: the CUDA kernels' durations under
     torch.profiler over ``iters`` calls after one warm-up, so the host time
     of a Python wrapper does not count; and the kernels captured per call.
     The profiler can miss a few launches, so each kernel name counts its
     mean duration times its launches per call (its captured count over
-    ``iters``, rounded)."""
+    ``iters``, rounded).  A session now and then delivers none of its
+    kernel records: then up to four more are taken.  ``only``: count just
+    the kernels whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     durations = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and (only is None or only in e.name):
+                durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if durations:
+            break
     return {"ms": sum(statistics.mean(d) * max(1, round(len(d) / iters)) for d in durations.values()) / 1e3,
             "kernels_per_call": sum(len(d) for d in durations.values()) / iters}
 
@@ -559,6 +573,36 @@ def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float,
 # The EHFL kernels are microseconds long and their callers host-bound: their
 # per-call event times (and their library calls') are medians over EHFL_ITERS.
 EHFL_ITERS = 200
+# vaoi_distance's wide route at the LM clients' shapes (phase 12's qwen1.5
+# features, phase 13's deepseek-moe features) and the kernels bench's
+VAOI_WIDE = ((8, 151_936), (4, 102_400), (1024, 4096))
+# the vaoi sweep's shapes: (25, 10), (50, 10) and (256, 10) a fleet shard's
+# rows at N=100 over 4 and 2 ranks, N=1024 over 4; then every plan on an
+# H100's 132 SMs: the thread route's edge (F 32/33), odd F (rows off 16-byte
+# alignment), the cluster route at S = 1 (1024, 4096), 2 (20, 16384), 4
+# (8, 16384), 8 (8, 151,936) and 16 (1, 151,936), (4, 102,400)
+VAOI_SWEEP = ((10, 10), (100, 10), (100, 16), (100, 32), (100, 33), (128, 512), (257, 300), (33, 1025),
+              (100, 130), (10, 700), (5, 1025), (25, 10), (50, 10), (256, 10), (3, 40_001),
+              (1, 151_936), (8, 151_936), (4, 102_400), (1024, 4096), (20, 16_384), (8, 16_384))
+# (n, f, v's and h's offsets in elements into their storage): 16-byte
+# vectors between a scalar head and tail where v and h sit alike, scalar
+# loads where they do not
+VAOI_OFFSETS = ((8, 151_936, 1, 1), (3, 40_001, 1, 0), (33, 1025, 3, 3), (20, 16_384, 0, 2))
+
+
+def vaoi_mu_between(torch, v, h) -> float:
+    """An Eq. 7 threshold that splits the rows of (v, h): inside the widest
+    gap between neighbouring m = |v - h| in the middle half of the rows, so
+    that rows take both branches and a kernel's m and the plain version's
+    (which differ in the order of the sum) fall on the same side of it, and
+    the ages can be compared exactly.  Half the one m of a single row."""
+    m = torch.sort(torch.linalg.vector_norm(v.float() - h.float(), dim=-1).cpu()).values
+    n = m.numel()
+    if n == 1:
+        return 0.5 * m[0].item()
+    lo, hi = max(1, n // 4), max(2, -(-3 * n // 4))
+    k = lo + int(torch.argmax(m[lo:hi] - m[lo - 1:hi - 1]))
+    return 0.5 * (m[k - 1] + m[k]).item()
 # the main path's FedAvg rows: the slab (5 of 10 upload) and the old-carrier
 # stack (5 of 100 carry an old message)
 SLAB_ROWS, OLD_ROWS, SLAB_UP, OLD_UP = 10, 100, 5, 5
@@ -685,7 +729,8 @@ def host_ms(fns: dict, iters: int = 2000, rounds: int = 6) -> dict:
 def vaoi_host_path(torch, v, h, age, q, dev) -> dict:
     """Where a vaoi_distance call's time goes, on the host clock
     (:func:`host_ms`): the whole call, its launch floor, each step of the
-    wrapper's path on its own, and their sum; beside them the outputs as
+    wrapper's path on its own (the cached plan's lookup among them), and
+    their sum; beside them the outputs as
     one (2, N) tensor split by ``unbind`` (the path's alternative), and the
     library route and its two calls."""
     from repro_torch.kernels import build
@@ -695,16 +740,18 @@ def vaoi_host_path(torch, v, h, age, q, dev) -> dict:
     m, a = torch.empty_like(age), torch.empty_like(age)
     empty = kv._launcher("vaoi_empty_launch")
     stream = build.launch_stream("vaoi_distance", v.get_device())
+    segments = kv.split_plan(n, f, v.element_size(), kv.sm_count(v.get_device()))
     params = kv._ARGS.pack(v.data_ptr(), h.data_ptr(), age.data_ptr(), q.data_ptr(), m.data_ptr(), a.data_ptr(),
-                           stream, 0.5, n, f, False)
+                           stream, 0.5, n, f, False, segments)
     d = v - h
     steps = {
         "check_inputs": lambda: kv.check_inputs(v, h, age, q),
         "get_device_x4": lambda: (v.get_device(), h.get_device(), age.get_device(), q.get_device()),
         "launch_stream": lambda: build.launch_stream("vaoi_distance", 0),
         "outputs_empty_like_x2": lambda: (torch.empty_like(age), torch.empty_like(age)),
+        "split_plan": lambda: kv.split_plan(n, f, v.element_size(), kv.sm_count(v.get_device())),
         "pack_params": lambda: kv._ARGS.pack(v.data_ptr(), h.data_ptr(), age.data_ptr(), q.data_ptr(),
-                                             m.data_ptr(), a.data_ptr(), stream, 0.5, n, f, False),
+                                             m.data_ptr(), a.data_ptr(), stream, 0.5, n, f, False, segments),
         "ctypes_empty_launch": lambda: empty(params),
     }
     timed = host_ms({
@@ -719,11 +766,61 @@ def vaoi_host_path(torch, v, h, age, q, dev) -> dict:
     return {**timed, "sum_of_steps": sum(timed[k] for k in steps)}
 
 
+def vaoi_wide_rows(torch, ref, kern_vaoi, vaoi_floor, g, dev) -> list:
+    """vaoi_distance's wide route at VAOI_WIDE (fp32): against its plain
+    version (m within 1e-6 of the largest, ages equal, mu between the rows'
+    m so both branches of Eq. 7 are taken), two calls bit for bit, then
+    event times in turns beside its launch floor on the same plan and
+    ``vector_norm(v - h)``, device times of all three, the byte bound, the
+    plan and the row's seconds."""
+    from repro_torch.kernels import vaoi_distance as kv
+
+    rows = []
+    for n, f in VAOI_WIDE:
+        t0 = time.perf_counter()
+        v = torch.softmax(torch.randn(n, f, generator=g), -1).to(dev)
+        h = torch.softmax(torch.randn(n, f, generator=g), -1).to(dev)
+        age = torch.randint(0, 7, (n,), generator=g).float().to(dev)
+        q = (torch.rand(n, generator=g) < 0.25).float().to(dev)
+        mu = vaoi_mu_between(torch, v, h)
+        m_k, a_k = kern_vaoi(v, h, age, q, mu)
+        m_2, a_2 = kern_vaoi(v, h, age, q, mu)
+        m_r, a_r = ref.vaoi_distance_ref(v, h, age, q, mu)
+        err = (m_k - m_r).abs().max().item()
+        if err > 1e-6 * max(1.0, m_r.abs().max().item()) or not torch.equal(a_k, a_r):
+            raise AssertionError(f"vaoi_distance ({n}, {f}) disagrees with its plain version: {err}")
+        if not (torch.equal(m_k, m_2) and torch.equal(a_k, a_2)):
+            raise AssertionError(f"vaoi_distance ({n}, {f}): two calls differ")
+        b_ms, b_by = bound(2 * n * f * 4 + 4 * n * 4, 3 * n * f + 4 * n)
+        kernel, floor = (lambda: kern_vaoi(v, h, age, q, mu)), (lambda: vaoi_floor(v, h, age, q, mu))
+        library = lambda: torch.linalg.vector_norm(v - h, dim=-1)  # noqa: E731
+        plan = kv.plan_of(v)
+        row = {
+            "kernel": "vaoi_distance", "shape": [n, f], "dtype": "float32",
+            "design": f"{plan['route']} route, {plan['segments']} segment(s) a row", "plan": plan,
+            "max_abs_err": err, "tol": "1e-6 of max(1, |m|), ages equal", "bitwise_repeat": True,
+            **interleaved_ms({"ms": kernel, "launch_floor_ms": floor, "library_ms": library}, EHFL_ITERS),
+            "plain_ms": time_ms(lambda: ref.vaoi_distance_ref(v, h, age, q, mu)),
+            "bound_ms": b_ms, "bound_by": b_by, "launch_floor_device_ms": device_ms(floor, EHFL_ITERS)["ms"],
+            "library": "linalg.vector_norm(v - h, dim=-1)",
+        }
+        add_device_ms(row, kernel, library)
+        row.update(device_bound_share=b_ms / row["device_ms"], ms_over_library=row["ms"] / row["library_ms"],
+                   mu=mu, rows_reaching_mu=int((m_r >= mu).sum().item()), seconds=time.perf_counter() - t0)
+        log(json.dumps(row))
+        rows.append(row)
+        del v, h
+    return rows
+
+
 def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, dev):
     """Phase 3 (EHFL kernels).  Returns per-kernel main-path numbers for the
     final line: vaoi_distance beside its launch floor, and fedavg_reduce's
     leaf-table launch at the main path's layout (the single-matrix calls of
     the TPU kernel's signature are timed beside it)."""
+    from repro_torch.kernels.vaoi_distance import plan_of as vaoi_plan_of
+
+    t_start = time.perf_counter()
     g = torch.Generator().manual_seed(0)
     results = {}
 
@@ -743,7 +840,8 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
     library = lambda: torch.linalg.vector_norm(v - h, dim=1)  # noqa: E731
     timed = interleaved_ms({"ms": kernel, "launch_floor_ms": floor, "library_ms": library}, EHFL_ITERS)
     row = {
-        "kernel": "vaoi_distance", "shape": [n, f], "dtype": "float32", "design": "one thread per row (F <= 32)",
+        "kernel": "vaoi_distance", "shape": [n, f], "dtype": "float32",
+        "design": "thread route (F <= 32), one thread a row", "plan": vaoi_plan_of(v),
         "max_abs_err": err, "tol": 1e-5, **timed,
         "plain_ms": time_ms(lambda: ref.vaoi_distance_ref(v, h, age, q, 0.5)),
         "bound_ms": b_ms, "bound_by": b_by, "launch_floor_device_ms": device_ms(floor, EHFL_ITERS)["ms"],
@@ -769,6 +867,7 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
     timed = interleaved_ms({"ms": kernel, "launch_floor_ms": floor, "library_ms": library}, EHFL_ITERS)
     shard = {
         "kernel": "vaoi_distance", "role": "fleet shard (phase 10b)", "shape": [n, f], "dtype": "float32",
+        "plan": vaoi_plan_of(vs),
         "max_abs_err": err, "tol": 1e-5, **timed, "plain_ms": time_ms(lambda: ref.vaoi_distance_ref(vs, hs, ages, qs, 0.5)),
         "bound_ms": b_ms, "bound_by": b_by, "launch_floor_device_ms": device_ms(floor, EHFL_ITERS)["ms"],
     }
@@ -777,6 +876,7 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
                  device_over_launch_floor=shard["device_ms"] / shard["launch_floor_device_ms"])
     log(json.dumps(shard))
     results["vaoi_distance_shard"] = shard
+    results["vaoi_distance_wide"] = vaoi_wide_rows(torch, ref, kern_vaoi, vaoi_floor, g, dev)
 
     # --- fedavg_reduce in the TPU kernel's signature: the slab (10, P) and the old-carrier stack (100, P) ---
     p = 845_738
@@ -841,19 +941,34 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
     del groups, got, want
 
     # --- ragged fp32/bf16 sweeps (tests/test_kernels.py's shapes and tolerances) ---
-    n_checked = 0
+    from repro_torch.kernels import vaoi_distance as kv
+
+    def at_offset(x, off):  # a contiguous copy of x that starts `off` elements into its storage
+        return torch.empty(x.numel() + off, dtype=x.dtype, device=dev)[off:].view(x.shape).copy_(x)
+
+    # vaoi: mu between the rows' m, so both branches of Eq. 7 are taken and
+    # the ages compared exactly
+    n_checked, plans, vaoi_seconds = 0, set(), 0.0
     for dtype, tv, tf in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 0.2, 0.05)):
-        # (25, 10), (50, 10) and (256, 10): a fleet shard's rows at N=100 over 4 and 2 ranks, N=1024 over 4
-        for n, f in ((10, 10), (100, 10), (100, 16), (100, 32), (100, 33), (128, 512), (257, 300), (33, 1025),
-                     (100, 130), (10, 700), (5, 1025), (25, 10), (50, 10), (256, 10)):
-            v = torch.randn(n, f, generator=g).to(dtype).to(dev)
-            h = torch.randn(n, f, generator=g).to(dtype).to(dev)
+        t0 = time.perf_counter()
+        for n, f, v_off, h_off in [(n, f, 0, 0) for n, f in VAOI_SWEEP] + list(VAOI_OFFSETS):
+            v = at_offset(torch.randn(n, f, generator=g).to(dtype), v_off)
+            h = at_offset(torch.randn(n, f, generator=g).to(dtype), h_off)
             age = torch.randint(0, 9, (n,), generator=g).float().to(dev)
             q = (torch.rand(n, generator=g) < 0.4).float().to(dev)
-            got, want = kern_vaoi(v, h, age, q, 0.7), ref.vaoi_distance_ref(v, h, age, q, 0.7)
-            for a, b in zip(got, want):
-                torch.testing.assert_close(a, b, rtol=tv, atol=tv)
+            mu = vaoi_mu_between(torch, v, h)
+            got, want = kern_vaoi(v, h, age, q, mu), ref.vaoi_distance_ref(v, h, age, q, mu)
+            torch.testing.assert_close(got[0], want[0], rtol=tv, atol=tv)
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"vaoi_distance ({n}, {f}) {dtype}: ages differ from the plain version's")
+            if f > kv.MAX_ROW_F and not all(torch.equal(a, b) for a, b in zip(got, kern_vaoi(v, h, age, q, mu))):
+                raise AssertionError(f"vaoi_distance ({n}, {f}) {dtype}: two calls differ")
+            plan = kv.plan_of(v)
+            plans.add((plan["route"], plan["segments"]))
             n_checked += 1
+        del v, h
+        torch.cuda.synchronize()
+        vaoi_seconds += time.perf_counter() - t0
         for k, p in ((1, 128), (10, 1000), (100, 4096), (7, 333), (64, 2048), (5, 77), (13, 100), (3, 2049), (65, 5)):
             msgs = torch.randn(k, p, generator=g).to(dtype).to(dev)
             w = torch.rand(k, generator=g)
@@ -880,7 +995,12 @@ def phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, d
         n_checked += 1
         del groups
     torch.cuda.synchronize()
-    log(json.dumps({"phase": "kernel_sweep", "cases": n_checked, "leaf_table_nan_columns": nan_columns, "ok": True}))
+    want_plans = {("thread", 1)} | {("cluster", s) for s in kv.SEGMENTS}
+    if kv.sm_count(torch.cuda.current_device()) == 132 and not want_plans <= plans:
+        raise AssertionError(f"the vaoi sweep missed plans {sorted(want_plans - plans)}")
+    log(json.dumps({"phase": "kernel_sweep", "cases": n_checked, "leaf_table_nan_columns": nan_columns,
+                    "vaoi_plans": sorted(plans), "vaoi_seconds": vaoi_seconds,
+                    "ehfl_kernels_seconds": time.perf_counter() - t_start, "ok": True}))
     return results
 
 def ssd_inputs(torch, g, b, s, nh, hp, ds, dtype, dev, decay=1.0):
@@ -2455,6 +2575,8 @@ def lm_kernel_rows(torch, ops, ref, kern_fedavg, feats, leaves, groups, mu, seed
     dtype as the simulator makes them (within one fp32 ulp: both read the
     leaves exactly into fp32 and reduce in the same order).  Returns
     {kernel: row}."""
+    from repro_torch.kernels.vaoi_distance import plan_of as vaoi_plan_of
+
     dev = feats.device
     rows = {}
     N, V = feats.shape
@@ -2471,9 +2593,11 @@ def lm_kernel_rows(torch, ops, ref, kern_fedavg, feats, leaves, groups, mu, seed
         "library": lambda: torch.linalg.vector_norm(feats - h, dim=-1),
     }, EHFL_ITERS)
     b_ms, b_by = bound(2 * N * V * 4 + 4 * N * 4, 3 * N * V)
+    plan = vaoi_plan_of(feats)
     rows["vaoi_distance"] = {"shape": [N, V], "max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"],
                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
-                             "library": "linalg.vector_norm(v - h, dim=-1)"}
+                             "library": "linalg.vector_norm(v - h, dim=-1)", "plan": plan,
+                             "design": f"{plan['route']} route, {plan['segments']} segment(s) a row"}
     del h
     gl = torch.Generator(device=dev).manual_seed(seed + 1)
     drawn = [([torch.randn((k,) + s, generator=gl, device=dev).to(dt) for s, dt in leaves], w) for k, w in groups]
@@ -3481,6 +3605,9 @@ def main() -> int:
     ehfl[0].update(design=vaoi_row["design"], **{k: vaoi_row[k] for k in (
         "launch_floor_ms", "launch_floor_device_ms", "bound_with_launch_floor_ms", "device_over_launch_floor",
         "host_clock_ms")})
+    ehfl[0]["wide_rows"] = [{k: r[k] for k in (
+        "shape", "plan", "max_abs_err", "ms", "device_ms", "launch_floor_ms", "launch_floor_device_ms", "bound_ms",
+        "device_bound_share", "plain_ms", "library_ms", "library_device_ms")} for r in kresults["vaoi_distance_wide"]]
     ehfl[0]["fleet_shard"] = {k: kresults["vaoi_distance_shard"][k] for k in (
         "shape", "max_abs_err", "ms", "device_ms", "launch_floor_ms", "launch_floor_device_ms", "bound_ms",
         "bound_with_launch_floor_ms", "plain_ms", "library_ms", "library_device_ms")}

@@ -3,23 +3,36 @@
 Replaces ``src/repro/kernels/vaoi_distance.py::vaoi_distance`` (Pallas, body
 ``_make_kernel``).  Source: ``csrc/vaoi_distance.cu``, CUDA C++ for sm_90a.
 Bound: the bytes it moves, 2·N·F·elt + 16·N (v and h read, age and q read,
-m and new_age written), or one launch, whichever is longer.  At the main
-path's (100, 10) the bytes are about 9.6 KB, so the launch bounds it:
-:func:`launch_floor` runs this wrapper's whole path into an empty kernel on
-the same grid, and that time is the bound.  Design: two routes, chosen by F
-in the launcher.  For F <= 32 (the main path's F is 10) one thread per
-client row runs its F values through an fp32 ``fmaf`` chain, so no lane of
-a warp idles; above 32 one warp per row strides its lanes over F and
-reduces with warp shuffles.  Either replaces the TPU's sequential F grid
-axis and VMEM accumulator; any N and F, no padding.  At this size the host
-path is most of a call, so the wrapper keeps it lean: one check pass, no
-device context, the stream's raw handle, the two outputs as ``empty_like``
-of ``age``, and the launcher's arguments packed into one parameter block
-(one pointer for ctypes to convert in place of eleven).
+m and new_age written) over 3.35 TB/s, or one launch, whichever is longer.
+At the main path's (100, 10) the bytes are about 9.6 KB, so the launch
+bounds it: :func:`launch_floor` runs this wrapper's whole path into an
+empty kernel on the same grid and cluster shape, and that time is the
+floor.  At an LM's vocabulary-wide features ((8, 151,936) fp32 is 9.7 MB)
+the bytes bound it.
+
+Design: the route follows from F.  F <= 32 (the main path's F is 10):
+one thread per client row, an fp32 ``fmaf`` chain, so no lane of a warp
+idles.  F > 32: the cluster route.  Each row is cut into S of
+{1, 2, 4, 8, 16} segments (:func:`split_plan`, passed to the launcher,
+which derives the grid from N and S) so that a few rows still spread over
+the card; the S blocks of a row run as one thread-block cluster, and rank
+0 adds their partials in rank order from its shared memory, so two calls
+give the same bits.  Many rows take S = 1, a block a row.  Rows are read
+by 16-byte loads, four of v and four of h in flight a thread, each
+segment with a scalar head and tail around its 16-byte body (any base
+offset, any F).  (One warp a row for every F > 32, the route before it,
+put (8, 151,936) on one block of one SM.)  Every route replaces the TPU's
+sequential F grid axis and VMEM accumulator; any N and F, no padding.  At
+the small shapes the host path is most of a call, so the wrapper keeps it
+lean: one check pass, no device context, the stream's raw handle, the two
+outputs as ``empty_like`` of ``age``, the plan cached, and the launcher's
+arguments packed into one parameter block (one pointer for ctypes to
+convert in place of twelve).
 
 :func:`vaoi_distance` only launches the kernel: it takes tensors on the
-current CUDA device and raises on anything else.  ``kernels.ops`` routes
-CPU tensors to the plain version in ``kernels.ref``.
+current CUDA device and raises on anything else, a refused launch
+included; nothing falls back to another route.  ``kernels.ops`` routes CPU
+tensors to the plain version in ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -33,8 +46,44 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# VaoiArgs of csrc/vaoi_distance.cu: v, h, age, q, m_out, age_out, stream; mu; n, f, is_bf16
-_ARGS = struct.Struct("7Qf3i")
+# VaoiArgs of csrc/vaoi_distance.cu: v, h, age, q, m_out, age_out, stream; mu;
+# n, f, is_bf16, segments
+_ARGS = struct.Struct("7Qf4i")
+
+MAX_ROW_F = 32  # the thread route's largest F (kMaxRowF in the .cu)
+CLUSTER_THREADS = 256  # the cluster route's block, one a segment (kClusterThreads in the .cu)
+MIN_VECS = 4  # 16-byte vectors a thread: one batch of loads in flight
+SEGMENTS = (1, 2, 4, 8, 16)  # cluster sizes; above 8 is non-portable on sm_90
+
+
+@functools.cache
+def split_plan(n: int, f: int, elt_bytes: int, sms: int) -> int:
+    """The segments S a row of (n, f) rows of ``elt_bytes`` is cut into on a
+    card of ``sms`` SMs: 1 on the thread route (F <= MAX_ROW_F); on the
+    cluster route the most S (at most 16) that keeps n·S within half the
+    SMs and every segment CLUSTER_THREADS · MIN_VECS 16-byte vectors long.
+    More, smaller clusters measured slower on an H100 (at (8, 151,936)
+    fp32, S = 16 against S = 8: ``tools/vaoi_plan_sweep.py``, PERF.md §6)."""
+    if f <= MAX_ROW_F:
+        return 1
+    row_vecs = -(-f * elt_bytes // 16)
+    s = 1
+    while s < SEGMENTS[-1] and 2 * n * (2 * s) <= sms and -(-row_vecs // (2 * s)) >= CLUSTER_THREADS * MIN_VECS:
+        s *= 2
+    return s
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_of(v: torch.Tensor) -> dict:
+    """The route and segments a call on the CUDA tensor ``v`` (N, F) launches."""
+    n, f = v.shape
+    return {"route": "thread" if f <= MAX_ROW_F else "cluster",
+            "segments": split_plan(n, f, v.element_size(), sm_count(v.get_device()))}
 
 
 @functools.cache
@@ -73,7 +122,7 @@ def _call(launcher: str, v, h, age, q, mu) -> Tuple[torch.Tensor, torch.Tensor]:
     if n:
         err = _launcher(launcher)(_ARGS.pack(
             v.data_ptr(), h.data_ptr(), age.data_ptr(), q.data_ptr(), m.data_ptr(), new_age.data_ptr(), stream,
-            float(mu), n, f, v.dtype == torch.bfloat16,
+            float(mu), n, f, v.dtype == torch.bfloat16, split_plan(n, f, v.element_size(), sm_count(index)),
         ))
         if err != 0:
             raise RuntimeError(f"vaoi_distance kernel launch failed: CUDA error {err}")
@@ -93,9 +142,10 @@ def vaoi_distance(
 def launch_floor(
     v: torch.Tensor, h: torch.Tensor, age: torch.Tensor, q: torch.Tensor, mu: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`vaoi_distance`'s whole path (checks, stream, outputs, launch,
-    the count's test) into an empty kernel on the same grid: the least time
-    a call can take.  The outputs are uninitialised."""
+    """:func:`vaoi_distance`'s whole path (checks, stream, plan, outputs,
+    launch, the count's test) into an empty kernel on the same grid and
+    cluster shape: the least time a call can take.  The outputs are
+    uninitialised."""
     out = _call("vaoi_empty_launch", v, h, age, q, mu)
     if v.shape[0]:
         launch_floor.launches += 1

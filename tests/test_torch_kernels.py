@@ -9,6 +9,9 @@ bf16 inputs identically but sum in another order).  The Hopper kernels
 themselves run only on a GPU (tests marked ``cuda``); here the wrappers are
 checked to raise, never to fall back, on what they do not take.
 """
+import re
+from pathlib import Path
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,6 +23,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import vaoi_distance as kv  # noqa: E402
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce as fedavg_kernel  # noqa: E402
 from repro_torch.kernels.vaoi_distance import vaoi_distance as vaoi_kernel  # noqa: E402
 
@@ -43,14 +47,14 @@ def vaoi_inputs(n, f, dtype, seed=0):
     return v, h, age, q
 
 
-def check_vaoi(n, f, jdtype, tol, mu=0.5, **pallas_kw):
+def check_vaoi(n, f, jdtype, tol, mu=0.5, pallas=True, **pallas_kw):
     v, h, age, q = vaoi_inputs(n, f, jdtype)
     m, a = ops.vaoi_distance(to_torch(v), to_torch(h), to_torch(age), to_torch(q), mu)
     assert m.dtype == a.dtype == torch.float32 and m.shape == a.shape == (n,)
-    for want_m, want_a in (
-        jref.vaoi_distance_ref(v, h, age, q, mu),
-        jops.vaoi_distance(v, h, age, q, mu, **pallas_kw),
-    ):
+    wants = [jref.vaoi_distance_ref(v, h, age, q, mu)]
+    if pallas:
+        wants.append(jops.vaoi_distance(v, h, age, q, mu, **pallas_kw))
+    for want_m, want_a in wants:
         np.testing.assert_allclose(m.numpy(), np.asarray(want_m), rtol=tol, atol=tol)
         np.testing.assert_allclose(a.numpy(), np.asarray(want_a), rtol=tol, atol=tol)
 
@@ -75,6 +79,63 @@ def test_vaoi_distance_sweep(n, f, dtype):
 @pytest.mark.parametrize("n,f,bn,bf", [(100, 130, 32, 64), (10, 700, 8, 512), (33, 33, 32, 32), (5, 1025, 128, 512)])
 def test_vaoi_distance_padding_shapes(n, f, bn, bf):
     check_vaoi(n, f, jnp.float32, 1e-5, mu=0.7, block_n=bn, block_f=bf)
+
+
+# the cluster route's shapes: one row over 16 segments, odd F (rows off
+# 16-byte alignment), a row just past 2^13; an LM's (8, 151,936) runs on the card
+@pytest.mark.parametrize("n,f", [(1, 151_936), (3, 40_001), (2, 8193)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vaoi_distance_wide(n, f, dtype):
+    check_vaoi(n, f, DTYPES[dtype][0], 1e-5 if dtype == "float32" else 0.2, pallas=False)
+
+
+def test_vaoi_distance_wide_pallas():
+    """A moderate wide shape through the Pallas kernel in interpret mode too
+    (odd F, the last F block ragged)."""
+    check_vaoi(3, 4099, jnp.float32, 1e-5, mu=0.7, block_n=8, block_f=1024)
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_vaoi_split_plan(elt, sms):
+    """split_plan's segment counts: 1 for F <= 32 (the thread route's grid
+    follows from N alone), else S of SEGMENTS, the most that keeps N·S
+    within half the SMs and each segment MIN_VECS 16-byte vectors a thread.
+    That the segments partition each row, with inner boundaries on 16-byte
+    vectors, is held on the card: every S against the plain version on rows
+    off alignment (tests/test_torch_vaoi_gpu.py)."""
+    least = kv.CLUSTER_THREADS * kv.MIN_VECS
+    counts = set()
+    for n in (1, 2, 3, 4, 8, 16, 33, 66, 67, 100, 1024, 100_000):
+        for f in (1, 10, 32, 33, 64, 255, 1025, 4096, 4097, 8193, 40_001, 102_400, 151_936):
+            s = kv.split_plan(n, f, elt, sms)
+            counts.add(s)
+            assert s in kv.SEGMENTS
+            if f <= kv.MAX_ROW_F:
+                assert s == 1
+                continue
+            row_vecs = -(-f * elt // 16)
+            assert s == 1 or (2 * n * s <= sms and -(-row_vecs // s) >= least)
+            room = 2 * n * 2 * s <= sms and -(-row_vecs // (2 * s)) >= least
+            assert s == kv.SEGMENTS[-1] or not room  # no more segments would fit
+    assert counts == ({1} if sms < 8 else set(kv.SEGMENTS) if sms == 132 else {1, 2, 4})
+
+
+def test_vaoi_plan_shapes():
+    """The segments at the LM and bench shapes on an H100's 132 SMs."""
+    assert kv.split_plan(100, 10, 4, 132) == 1  # the EHFL main path, the thread route
+    assert kv.split_plan(8, 151_936, 4, 132) == 8  # phase 12's qwen1.5 features
+    assert kv.split_plan(4, 102_400, 4, 132) == 16  # phase 13's deepseek-moe features
+    assert kv.split_plan(1024, 4096, 4, 132) == 1  # the kernels bench
+    assert kv.split_plan(16_384, 256, 4, 132) == 1
+
+
+def test_vaoi_args_layout_matches_the_launcher():
+    """The wrapper's parameter block covers the C side's VaoiArgs up to its
+    last field."""
+    src = (Path(kv.__file__).resolve().parent.parent / "csrc" / "vaoi_distance.cu").read_text()
+    size = int(re.search(r"offsetof\(VaoiArgs, segments\) \+ sizeof\(int\) == (\d+)", src).group(1))
+    assert kv._ARGS.size == size == 7 * 8 + 4 + 4 * 4
 
 
 @pytest.mark.parametrize("k,p", [(1, 128), (10, 1000), (100, 4096), (7, 333), (64, 2048)])
@@ -159,7 +220,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,f", [(100, 10), (257, 300), (33, 1025)])
+@pytest.mark.parametrize("n,f", [(100, 10), (257, 300), (33, 1025), (8, 151_936), (4, 102_400), (1024, 4096),
+                                 (1, 151_936), (3, 40_001), (2, 8193), (100, 33)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_vaoi_kernel_on_gpu(n, f, dtype, cuda_device):
     v, h, age, q = (to_torch(x).to(cuda_device) for x in vaoi_inputs(n, f, DTYPES[dtype][0]))
