@@ -135,7 +135,9 @@ def _local_train(
     images (B, n, ...), labels (B, n), perms (B, kappa*bs).  The feature is
     taken after each step's update, on that step's batch.
     ``with_feature=False`` (non-VAoI policies) skips the feature forward and
-    returns ``None`` for the moment."""
+    returns ``None`` for the moment.  Each step's stages are
+    ``ehfl.local_train.*`` ranges (``batch``, ``grad``, ``update``,
+    ``feature``), so a trace can put the device's idle down to a stage."""
     b, n = images.shape[:2]
     bs = sgd_batch_size(cfg.kappa, n)
     p = {k: v.unsqueeze(0).expand((b,) + v.shape).contiguous() for k, v in params.items()}
@@ -144,12 +146,16 @@ def _local_train(
     feat_fn = vmap(backend.feature)
     fsum = torch.zeros(b, backend.feature_dim, device=images.device) if with_feature else None
     for j in range(cfg.kappa):
-        idx = perms[:, j * bs : (j + 1) * bs]
-        imgs, lbls = images[rows, idx], labels[rows, idx]
-        _, grads = grad_fn(p, imgs, lbls)
-        p = sgd_update(p, grads, cfg.lr)
+        with record_function("ehfl.local_train.batch"):
+            idx = perms[:, j * bs : (j + 1) * bs]
+            imgs, lbls = images[rows, idx], labels[rows, idx]
+        with record_function("ehfl.local_train.grad"):
+            _, grads = grad_fn(p, imgs, lbls)
+        with record_function("ehfl.local_train.update"):
+            p = sgd_update(p, grads, cfg.lr)
         if with_feature:
-            fsum = fsum + feat_fn(p, imgs) * bs  # batch-mean feature of w^(t,b+1)
+            with record_function("ehfl.local_train.feature"):
+                fsum = fsum + feat_fn(p, imgs) * bs  # batch-mean feature of w^(t,b+1)
     return p, fsum / (cfg.kappa * bs) if with_feature else None
 
 
@@ -323,6 +329,7 @@ class EpochOps(NamedTuple):
 SOLO_OPS = EpochOps()
 
 
+@record_function("ehfl.epoch")
 def epoch_body(
     carry: EpochCarry,
     t: int,
@@ -418,16 +425,17 @@ def epoch_body(
         # --- dense path: train all clients, keep the started ones ---
         trained, h_new = train(images, labels, draws.perms)
         started = st.started
-        msg_params = {
-            k: torch.where(_rows(started, old), trained[k], old) for k, old in carry.msg_params.items()
-        }
-        h = torch.where(started[:, None], h_new, carry.h) if spec.uses_vaoi else carry.h
-        # old-pending uploads use their old message
-        contrib = {
-            k: torch.where(_rows(pending_in, old), old, msg_params[k])
-            for k, old in carry.msg_params.items()
-        }
+        with record_function("ehfl.scatter"):
+            msg_params = {
+                k: torch.where(_rows(started, old), trained[k], old) for k, old in carry.msg_params.items()
+            }
+            h = torch.where(started[:, None], h_new, carry.h) if spec.uses_vaoi else carry.h
         with record_function("ehfl.fedavg"):
+            # old-pending uploads use their old message
+            contrib = {
+                k: torch.where(_rows(pending_in, old), old, msg_params[k])
+                for k, old in carry.msg_params.items()
+            }
             new_global = _masked_mean(contrib, upload_mask, carry.global_params, ops.reduce_sum)
     else:
         # --- active-set compaction: gather the started clients into a
