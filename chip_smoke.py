@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. Device: the card's name and power limit as nvidia-smi reports them.
-2. Build: the four Hopper kernels from ``src/repro_torch/csrc`` with nvcc
+2. Build: the five Hopper kernels from ``src/repro_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together; ptxas' registers,
    spills and shared memory for each ssd_scan and swa_attention instance
    (the bf16 tensor-core instances the prefills run, ssd_scan's at ds = 128
@@ -44,14 +44,20 @@ result line):
    head dims 64 and 128, GQA groups 1 to 8, whisper's encoder non-causal
    over 1500 frames; ZOO_SSD_SHAPE, jamba's scan at ds 16 over 128 heads),
    bf16, each element within its limit, timed beside the plain version and
-   (attention) SDPA.
+   (attention) SDPA.  Last conv_lanes (CONV_LANES_SHAPES: the paper CNN's six
+   convolutions, 100 and then 10 lanes of 15 images), each direction within
+   ``conv_lanes_limit`` of its plain version in strict fp32, timed in turns
+   with it and the grouped ``F.conv2d`` call, beside its bound.
 4. The EHFL slice: ``run_simulation`` at the paper's width (the 845,738-parameter
    CNN, N=100 clients x 300 samples, k=10, S=30, kappa=20, a 500-image test
    set) for T epochs on the GPU, with ``TorchDraws(seed=0)``.  Only the depth
    T is cut (the paper runs 500 epochs).  The kernel launch counters must
    read T for vaoi_distance and T for fedavg_reduce (one leaf-table launch
-   an epoch reduces both the slab and the old-carrier stack), and
-   fedavg_reduce's row-group counter 2T.
+   an epoch reduces both the slab and the old-carrier stack), T * kappa * 23
+   for conv_lanes (``cnn_conv_launches``: 17 a vmapped SGD step, 6 a
+   feature forward; the CNN's EHFL runs of the later phases the same way),
+   and by direction T * kappa * 12 forward, 5 input-grad and 6 weight-grad
+   launches (``cnn_conv_directions``), and fedavg_reduce's row-group counter 2T.
 5. The same run on the CPU (plain versions, same data, init and draws):
    integer dynamics, ages and selections equal exactly; params and f1
    within the stated fp32 tolerances.  The last GPU epoch runs under
@@ -457,6 +463,7 @@ ROUTED_PARAM_ATOL, ROUTED_STEP_ATOL = 1e-6, STEP_ATOL
 # 0.1, 2 seeds); the full grid is not run.
 QUICK_EPOCHS, QUICK_GALLERY_EPOCHS = 10, 4
 DRIVER_CELL = ("vaoi", 0.1, 0.1)
+QUICK_KAPPA = 20  # the quickstart's and the grid's SGD steps an epoch
 # Phase 15, the bench suite: the harness's suites at their quick protocols,
 # and the fleet bench once more over BENCH_GLOO_RANKS gloo ranks on the card
 BENCH_SUITES = ("kernels", "stream", "channel", "fleet")
@@ -561,6 +568,28 @@ def add_device_ms(row: dict, kernel, library) -> None:
     dk, dl = device_ms(kernel), device_ms(library)
     row.update(device_ms=dk["ms"], kernels_per_call=dk["kernels_per_call"], library_device_ms=dl["ms"],
                library_kernels_per_call=dl["kernels_per_call"])
+
+
+def cnn_conv_directions(kappa: int, policy: str) -> dict:
+    """conv_lanes launches of one epoch of the CNN clients' local training,
+    by direction: kappa vmapped SGD steps of six convolutions (6 forward,
+    5 input-grad and 6 weight-grad launches: conv0's input needs no
+    gradient) and, under a VAoI policy, each step's Eq. 6 feature forward
+    (6 more forward launches)."""
+    return {"launches_forward": kappa * (6 + 6 * policy.startswith("vaoi")), "launches_input_grad": kappa * 5,
+            "launches_weight_grad": kappa * 6}
+
+
+def cnn_conv_launches(kappa: int, policy: str) -> int:
+    """All conv_lanes launches of one such epoch (17 a SGD step, 23 under VAoI)."""
+    return sum(cnn_conv_directions(kappa, policy).values())
+
+
+def conv_direction_counts() -> dict:
+    """conv_lanes' launch counter of each direction (``ops.reset_launch_counts`` clears them)."""
+    from repro_torch.kernels import conv_lanes as kc
+
+    return {f"launches_{d}": getattr(kc.conv_lanes, f"launches_{d}") for d in kc.DIRECTIONS}
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
@@ -1059,6 +1088,100 @@ def ssd_work(b, s, nh, hp, ds, L, elt):
         tri = rows * (rows + 1) // 2
         flops += b * 2 * tri * ds + b * nh * (2 * tri * hp + 4 * rows * ds * hp)
     return nbytes, flops
+
+
+# conv_lanes at the paper CNN's six convolutions, (cin, cout, pixels a side),
+# for each of CONV_LANES lanes of CONV_BATCH images: the SGD step of a
+# 100-lane slab (fedavg's dense path, N = 1000's slab) and of a 10-lane one
+# (the paper's k = 10: phase 4 and the n100.vaoi cell), whose weight
+# gradients split over other cluster sizes
+CONV_LANES_SHAPES = ((3, 32, 32), (32, 32, 32), (32, 64, 16), (64, 64, 16), (64, 128, 8), (128, 128, 8))
+CONV_LANES, CONV_BATCH = (100, 10), 15
+
+
+def conv_lanes_limit(want, terms: int) -> float:
+    """The largest gap a direction may show from its plain version: 1e-5 of
+    the largest output at 288 summed products, growing with the square root
+    of the sum's length (the weight gradient sums 15,360 a lane at conv1).
+    Both are strict fp32 sums in other orders.  Against a float64 reference
+    on an H100 the kernel read at most 1.6e-6 of the largest output in every
+    direction, cuDNN's grouped call up to 2.1e-5 (conv1's weight gradient),
+    cuDNN in TF32 2e-4 to 9e-4."""
+    return 1e-5 * want.abs().max().item() * math.sqrt(max(terms, 288) / 288)
+
+
+def phase_conv_lanes(torch, ref, dev) -> dict:
+    """Phase 3's conv_lanes rows, a pass for each lane count of CONV_LANES:
+    each direction at each of the paper CNN's convolutions
+    (CONV_LANES_SHAPES; conv0's input gradient is never asked for), against
+    its plain version in strict fp32 within :func:`conv_lanes_limit`, then
+    timed by CUDA events in turns with the plain version and the library
+    call, ``F.conv2d`` with groups = lanes and its two gradients on NCHW
+    copies (the grouped cuDNN convolution the port's vmapped lanes no longer
+    call), beside the bound: operations over the fp32 peak or bytes over
+    HBM, the larger.  Returns {lanes: rows}."""
+    return {L: conv_lanes_pass(torch, ref, dev, L) for L in CONV_LANES}
+
+
+def conv_lanes_pass(torch, ref, dev, L: int) -> list:
+    """:func:`phase_conv_lanes`' rows at ``L`` lanes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import conv_lanes as kc
+
+    B = CONV_BATCH
+    rows = []
+    for cin, cout, size in CONV_LANES_SHAPES:
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(L, B, size, size, cin, generator=g).to(dev).permute(0, 1, 4, 2, 3)
+        w = (torch.randn(L, cout, cin, 3, 3, generator=g) / (3 * cin**0.5)).to(dev)
+        b = torch.randn(L, cout, generator=g).to(dev)
+        dy = torch.randn(L, B, size, size, cout, generator=g).to(dev).permute(0, 1, 4, 2, 3)
+        xg = x.transpose(0, 1).reshape(B, L * cin, size, size)  # the library call's NCHW copies
+        dyg = dy.transpose(0, 1).reshape(B, L * cout, size, size)
+        wg = w.reshape(L * cout, cin, 3, 3)
+        flops = 2 * L * B * size * size * cout * 9 * cin
+        act_in, act_out, nw = x.numel(), dy.numel(), w.numel() + b.numel()
+        directions = {
+            "forward": (lambda: kc.forward(x, w, b), lambda: ref.conv_lanes_ref(x, w, b),
+                        lambda: F.conv2d(xg, wg, b.reshape(-1), padding=1, groups=L),
+                        4 * (act_in + nw + act_out), 9 * cin),
+            "input_grad": (lambda: kc.input_grad(dy, w), lambda: ref.conv_lanes_input_grad_ref(dy, x, w),
+                           lambda: torch.nn.grad.conv2d_input(xg.shape, wg, dyg, padding=1, groups=L),
+                           4 * (act_out + nw + act_in), 9 * cout),
+            "weight_grad": (lambda: kc.weight_grad(dy, x), lambda: ref.conv_lanes_weight_grad_ref(dy, x, w),
+                            lambda: torch.nn.grad.conv2d_weight(xg, wg.shape, dyg, padding=1, groups=L),
+                            4 * (act_out + act_in + nw), B * size * size),
+        }
+        for name, (kern, plain, library, nbytes, terms) in directions.items():
+            if name == "input_grad" and (cin, cout, size) == CONV_LANES_SHAPES[0]:
+                continue
+            before = getattr(kc.conv_lanes, f"launches_{name}")
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if getattr(kc.conv_lanes, f"launches_{name}") != before + 1:
+                raise AssertionError(f"conv_lanes {name}: the launch was not counted")
+            err, limit = 0.0, 0.0
+            for k_out, p_out in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+                e, lim = (k_out - p_out).abs().max().item(), conv_lanes_limit(p_out, terms)
+                if not e <= lim:  # each output (dw, db) within its own limit
+                    raise AssertionError(f"conv_lanes {name} at {L} lanes, {(cin, cout, size)}: max gap {e} > {lim}")
+                err, limit = max(err, e), max(limit, lim)
+            del got, want
+            t = interleaved_ms({"kernel": kern, "plain": plain, "library": library}, iters=20)
+            bms, by = bound(nbytes, flops)
+            rows.append({"shape": {"lanes": L, "batch": B, "cin": cin, "cout": cout, "pixels": size,
+                                   "direction": name}, "plan": kc.plan(name, L, B, size, size, cin, cout,
+                                                                       kc.sm_count(dev.index or 0)),
+                         "max_abs_err": err, "limit": limit, "ms": t["kernel"], "plain_ms": t["plain"],
+                         "library_ms": t["library"], "bound_ms": bms, "bound_by": by,
+                         "bound_share": bms / t["kernel"], "tflops": flops / t["kernel"] / 1e9})
+            log(json.dumps({"phase": "p3_conv_lanes", **rows[-1]}))
+        del x, w, b, dy, xg, dyg, wg
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(json.dumps({"phase": "p3_conv_lanes_step", "lanes": L, "per_sgd_step_of": "the six layers' three directions",
+                    **total, "bound_share": total["bound_ms"] / total["ms"]}))
+    return rows
 
 
 def phase_ssd_kernel(torch, ref, kern_ssd, dev):
@@ -2038,11 +2161,12 @@ def phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi):
     also held against the CPU epoch by epoch from shared state for 3
     epochs.  Returns the launch counts of the runs."""
     T = cfg.epochs
-    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
     counts, resent = [], 0
     dd = sim.to_device_data(data, dev)
     for name, kw in SCENARIO_RUNS:
         scfg = dataclasses.replace(cfg, **kw)
+        want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+                "conv_lanes": T * cnn_conv_launches(scfg.kappa, scfg.policy)}
         draws = TorchDraws(seed=scfg.seed)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2096,7 +2220,8 @@ def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
     out = sim.run_batch(cfg, backend, data, BATCH_SEEDS, device=dev)
     wall = time.perf_counter() - t0
     launches, row_groups = ops.launch_counts(), ops.row_group_count()
-    want = {"vaoi_distance": R * T, "fedavg_reduce": R * T, "ssd_scan": 0, "swa_attention": 0}
+    want = {"vaoi_distance": R * T, "fedavg_reduce": R * T, "ssd_scan": 0, "swa_attention": 0,
+            "conv_lanes": R * T * cnn_conv_launches(cfg.kappa, cfg.policy)}
     if launches != want or row_groups != 2 * R * T:
         raise AssertionError(f"run_batch: kernel launches {launches} != {want} or fedavg_reduce row groups "
                              f"{row_groups} != {2 * R * T}")
@@ -2207,7 +2332,8 @@ def phase_fleet_nccl(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev
     import torch.distributed as dist
 
     T = cfg.epochs
-    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+            "conv_lanes": T * cnn_conv_launches(cfg.kappa, cfg.policy)}
     with tempfile.TemporaryDirectory(prefix="fleet-") as tmp:
         backend_name = "nccl" if dev.type == "cuda" else "gloo"  # gloo: a rehearsal on the CPU
         dist.init_process_group(backend_name, init_method=f"file://{tmp}/store", world_size=1, rank=0,
@@ -2403,7 +2529,8 @@ def phase_fleet_gloo(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev
                           "n_delivered": solo_m["n_delivered"].item(), **cmp})
     if not sum(e["n_started"] for e in per_epoch) > 0:
         raise AssertionError(f"10b: no client trained in the compared epochs {[e['epoch'] for e in per_epoch]}")
-    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+            "conv_lanes": T * cnn_conv_launches(cfg.kappa, cfg.policy)}
     runs_b = [rk["run_b"] for rk in ranks]
     for r, rb in enumerate(runs_b):
         if rb["launches"] != want or rb["row_groups"] != 2 * T or rb["num_shards"] != R or not rb["finite"]:
@@ -2428,7 +2555,8 @@ def phase_fleet_gloo(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev
 
     # 10c: fleet scale
     Tc = T
-    want_c = {"vaoi_distance": Tc, "fedavg_reduce": Tc, "ssd_scan": 0, "swa_attention": 0}
+    want_c = {"vaoi_distance": Tc, "fedavg_reduce": Tc, "ssd_scan": 0, "swa_attention": 0,
+              "conv_lanes": Tc * cnn_conv_launches(cfg.kappa, cfg.policy)}
     runs_c = [rk["run_c"] for rk in ranks]
     for r, rc in enumerate(runs_c):
         if rc["launches"] != want_c or rc["row_groups"] != 2 * Tc or rc["num_shards"] != R or not rc["finite"]:
@@ -2662,7 +2790,7 @@ def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     per_round = {"vaoi_distance": 1, "fedavg_reduce": leaf_launches([(t.shape, t.dtype) for t in flat.values()]),
                  "ssd_scan": 0,
-                 "swa_attention": n_attn * (1 + d["k"])}  # the probe, then each client's refresh
+                 "swa_attention": n_attn * (1 + d["k"]), "conv_lanes": 0}  # the probe, then each client's refresh
 
     # 12a: the training rounds, the main path of this phase
     counts = []
@@ -2837,7 +2965,7 @@ def counted_lm_run(torch, ops, sim, cfg, mcfg, data, dev):
     params = decoder.flat_params(decoder.init_params(mcfg, seed=0, device=dev))
     kinds = [mcfg.layer_kind(i) for i in range(mcfg.num_layers)]
     per_epoch = {"vaoi_distance": 1, "fedavg_reduce": leaf_launches([(t.shape, t.dtype) for t in params.values()]),
-                 "ssd_scan": kinds.count("ssm"), "swa_attention": kinds.count("attn")}
+                 "ssd_scan": kinds.count("ssm"), "swa_attention": kinds.count("attn"), "conv_lanes": 0}
     backend = lm_backend(mcfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3134,7 +3262,9 @@ def phase_drivers(torch, dev, ops, smi):
     q_launches = ops.launch_counts()
     gallery = len(q.GALLERY_SEEDS) * QUICK_GALLERY_EPOCHS * len(rows["scenarios"])
     want = {"vaoi_distance": QUICK_EPOCHS * ("vaoi" in [r["policy"] for r in rows["policies"]]) + gallery,
-            "fedavg_reduce": QUICK_EPOCHS * len(rows["policies"]) + gallery, "ssd_scan": 0, "swa_attention": 0}
+            "fedavg_reduce": QUICK_EPOCHS * len(rows["policies"]) + gallery, "ssd_scan": 0, "swa_attention": 0,
+            "conv_lanes": sum(QUICK_EPOCHS * cnn_conv_launches(QUICK_KAPPA, r["policy"]) for r in rows["policies"])
+            + gallery * cnn_conv_launches(QUICK_KAPPA, "vaoi")}
     f1s = [r["f1"] for r in rows["policies"]] + [r["f1_mean"] for r in rows["scenarios"]]
     log(json.dumps({"phase": "p14_quickstart", "epochs": QUICK_EPOCHS, "gallery_epochs": QUICK_GALLERY_EPOCHS,
                     "wall_s": quick_s, "rows": rows, "launches": q_launches,
@@ -3156,7 +3286,8 @@ def phase_drivers(torch, dev, ops, smi):
         finally:
             grid.CACHE = cache
     runs = len(st["seeds"]) * st["epochs"]
-    want = {"vaoi_distance": runs, "fedavg_reduce": runs, "ssd_scan": 0, "swa_attention": 0}
+    want = {"vaoi_distance": runs, "fedavg_reduce": runs, "ssd_scan": 0, "swa_attention": 0,
+            "conv_lanes": runs * cnn_conv_launches(QUICK_KAPPA, DRIVER_CELL[0])}
     log(json.dumps({"phase": "p14_grid_cell", "cell": DRIVER_CELL, "settings": st, "wall_s": cell_s,
                     "seeds_per_hour_at_T500": 3600.0 / (cell_s / runs * 500), "final_f1": rec["f1"][-1],
                     "f1_per_seed": [f[-1] for f in rec["f1_per_seed"]], "total_energy": rec["total_energy"],
@@ -3173,7 +3304,7 @@ def bench_row_launches(cfg, launches, row_groups) -> dict | None:
     over two row groups when compacted (the slab and the old-carrier stack)
     or one when dense; the expectation, where the row missed it."""
     want = {"vaoi_distance": cfg.epochs * cfg.policy.startswith("vaoi"), "fedavg_reduce": cfg.epochs,
-            "ssd_scan": 0, "swa_attention": 0}
+            "ssd_scan": 0, "swa_attention": 0, "conv_lanes": cfg.epochs * cnn_conv_launches(cfg.kappa, cfg.policy)}
     groups = cfg.epochs * (2 if cfg.compact == "auto" else 1)
     return None if launches == want and row_groups == groups else {"launches": want, "row_groups": groups}
 
@@ -3432,6 +3563,8 @@ def main() -> int:
     kresults = phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, dev)
     kresults["ssd_scan"] = [phase_ssd_kernel(torch, ref, kern_ssd, dev)]
     kresults["swa_attention"] = [phase_swa_kernel(torch, ref, kern_swa, dev)]
+    conv_passes = phase_conv_lanes(torch, ref, dev)
+    kresults["conv_lanes"] = conv_passes[CONV_LANES[0]]
     zoo_rows = phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev)
     seconds["3"] = time.perf_counter() - t0
 
@@ -3448,14 +3581,17 @@ def main() -> int:
     t0 = time.perf_counter()
     gpu = sim.run_simulation(cfg, backend, data, draws=TorchDraws(seed=0), device=dev)
     gpu_s = time.perf_counter() - t0
-    launches, row_groups = ops.launch_counts(), ops.row_group_count()
+    launches, row_groups, conv_dirs = ops.launch_counts(), ops.row_group_count(), conv_direction_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0}
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+            "conv_lanes": T * cnn_conv_launches(cfg.kappa, cfg.policy)}
+    want_dirs = {k: T * v for k, v in cnn_conv_directions(cfg.kappa, cfg.policy).items()}
     log(json.dumps({"phase": "slice_gpu", "launches": launches, "expected": want, "fedavg_row_groups": row_groups,
-                    "expected_fedavg_row_groups": 2 * T}))
-    if launches != want or row_groups != 2 * T:
-        raise AssertionError(f"kernel launches {launches} != {want} or fedavg_reduce row groups {row_groups} != "
-                             f"{2 * T} on the main path")
+                    "expected_fedavg_row_groups": 2 * T, "conv_lanes_directions": conv_dirs,
+                    "expected_conv_lanes_directions": want_dirs}))
+    if launches != want or row_groups != 2 * T or conv_dirs != want_dirs:
+        raise AssertionError(f"kernel launches {launches} != {want}, fedavg_reduce row groups {row_groups} != "
+                             f"{2 * T} or conv_lanes directions {conv_dirs} != {want_dirs} on the main path")
     gm = gpu["metrics"]
     for t in range(T):
         log(json.dumps({
@@ -3594,6 +3730,18 @@ def main() -> int:
         entry("fedavg_reduce", "src/repro_torch/csrc/fedavg_reduce.cu",
               "src/repro/kernels/fedavg_reduce.py:36", kresults["fedavg_reduce"], launches),
     ]
+    # per pass: one SGD step of a 100-lane slab (the six layers' three directions); the
+    # directions' launches are phase 4's, each as cnn_conv_directions predicts
+    conv = entry("conv_lanes", "src/repro_torch/csrc/conv_lanes.cu",
+                 "none (the JAX package leaves its convolutions to XLA)", kresults["conv_lanes"], launches)
+    conv.update(route_launches=conv_dirs,
+                step_by_lanes={L: {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                               for L, rows in conv_passes.items()},
+                launches_scenarios=[c["conv_lanes"] for c in scenario_launches],
+                launches_run_batch=batch_launches["conv_lanes"], launches_phase14=driver_launches_of("conv_lanes"),
+                launches_phase15=bench_launches["conv_lanes"],
+                launches_fleet={k: [c["conv_lanes"] for c in v] if isinstance(v, list) else v["conv_lanes"]
+                                for k, v in fleet_launches.items()})
     for e in ehfl:  # the launches of phase 9a's runs, 9b's batch, phase 10's fleets (per rank) and phase 12
         e.update(launches_phase12=train_launches[e["name"]], phase12_shape=train_rows[e["name"]],
                  phase13_shape=routed_rows[e["name"]], launches_phase14=driver_launches_of(e["name"]),
@@ -3623,6 +3771,7 @@ def main() -> int:
     log(json.dumps({"phase_seconds": seconds, "total_s": time.perf_counter() - start}))
     log(json.dumps({"kernels": [
         *ehfl,
+        conv,
         ssd,
         swa,
     ]}))

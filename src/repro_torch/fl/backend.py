@@ -5,6 +5,11 @@ of (params, batch): the simulator batches them over clients with
 ``torch.func.vmap``, so they may hold no hidden state.  ``probe`` is the one
 batched function: one shared model over N clients' probe batches.  Params
 are a flat ``{name: tensor}`` dict, which the simulator stacks per client.
+The CNN's ``grad_loss`` and ``feature`` stay such per-client functions, and
+see that vmap: where it batches the weights (each lane its own client) and
+the tensors are on CUDA, the lanes run at once, each convolution one
+``kernels.conv_lanes`` launch a direction for all lanes; the probe's and the
+eval's shared model, and the CPU, keep ``F.conv2d`` (``models/cnn.py``).
 """
 from __future__ import annotations
 
@@ -18,16 +23,10 @@ from repro_torch.models import cnn
 
 
 def cnn_backend(cfg: CNNConfig) -> Backend:
-    gv = grad_and_value(lambda p, x, y: cnn.loss_fn(cfg, p, x, y))
-
-    def grad_loss(p, x, y):
-        grads, loss = gv(p, x, y)
-        return loss, grads
-
     return Backend(
         init=lambda generator, device: cnn.init_params(cfg, generator, device),
-        grad_loss=grad_loss,
-        feature=lambda p, x: cnn.feature_vector(cfg, p, x),
+        grad_loss=lambda p, x, y: cnn.grad_loss(cfg, p, x, y),
+        feature=lambda p, x: cnn.feature(cfg, p, x),
         probe=lambda p, x: cnn.feature_vectors(cfg, p, x),
         predict=lambda p, x: cnn.predictions(cfg, p, x),
         feature_dim=cfg.num_classes,

@@ -23,7 +23,7 @@ from typing import Dict, List, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"  # listed in .gitignore
-KERNELS = ("vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention")
+KERNELS = ("vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention", "conv_lanes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

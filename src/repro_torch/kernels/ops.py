@@ -7,6 +7,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import conv_lanes as _conv
 from repro_torch.kernels import ref
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce as _fedavg_reduce
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce_leaves as _fedavg_reduce_leaves
@@ -19,6 +20,7 @@ KERNELS = {
     "fedavg_reduce": _fedavg_reduce,
     "ssd_scan": _ssd_scan,
     "swa_attention": _swa_attention,
+    "conv_lanes": _conv.conv_lanes,
 }
 
 
@@ -70,6 +72,29 @@ def swa_attention(q, k, v, window: int = 0, causal: bool = True):
     return _swa_attention(q, k, v, window=window, causal=causal)
 
 
+def conv_lanes(x, w, b):
+    """A 3x3 convolution, stride 1, padding 1, of lanes that each hold
+    their own weights: x (L, B, Cin, H, W), w (L, Cout, Cin, 3, 3), b
+    (L, Cout) or None -> (L, B, Cout, H, W)."""
+    if _on_cpu(*((x, w) if b is None else (x, w, b))):
+        return ref.conv_lanes_ref(x, w, b)
+    return _conv.forward(x, w, b)
+
+
+def conv_lanes_input_grad(g, x, w):
+    """dL/dx (L, B, Cin, H, W) of :func:`conv_lanes` from g = dL/dy; x gives the shape."""
+    if _on_cpu(g, x, w):
+        return ref.conv_lanes_input_grad_ref(g, x, w)
+    return _conv.input_grad(g, w)
+
+
+def conv_lanes_weight_grad(g, x, w):
+    """(dL/dw (L, Cout, Cin, 3, 3), dL/db (L, Cout)) of :func:`conv_lanes`; w gives the shape."""
+    if _on_cpu(g, x, w):
+        return ref.conv_lanes_weight_grad_ref(g, x, w)
+    return _conv.weight_grad(g, x, kernel_size=tuple(w.shape[-2:]))
+
+
 # kernels with more than one route, and the counter of each
 ROUTES = {
     "ssd_scan": ("launches_tc", "launches_fma"),
@@ -92,14 +117,16 @@ def row_group_count() -> int:
 
 
 def reset_launch_counts() -> None:
-    for name, fn in KERNELS.items():
-        fn.launches = 0
-        for r in ROUTES.get(name, ()):
-            setattr(fn, r, 0)
+    """Zero every kernel's counters: ``launches`` and each ``launches_*``
+    (a route's, or one of conv_lanes' directions)."""
+    for fn in KERNELS.values():
+        for counter in [a for a in vars(fn) if a.startswith("launches")]:
+            setattr(fn, counter, 0)
     _fedavg_reduce.row_groups = 0
 
 
 __all__ = [
-    "vaoi_distance", "fedavg_reduce", "fedavg_reduce_leaves", "ssd_scan", "swa_attention", "launch_counts",
+    "vaoi_distance", "fedavg_reduce", "fedavg_reduce_leaves", "ssd_scan", "swa_attention", "conv_lanes",
+    "conv_lanes_input_grad", "conv_lanes_weight_grad", "launch_counts",
     "route_launch_counts", "row_group_count", "reset_launch_counts", "ref",
 ]

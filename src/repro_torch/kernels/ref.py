@@ -6,6 +6,7 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # swa_attention_ref's rows per pass: bounds its (B, H, chunk, S) scores
 REF_Q_CHUNK = 1024
@@ -99,3 +100,43 @@ def ssd_scan_ref(
         state = state * decay[..., None, None] + upd
         y[:, t] = torch.einsum("bhpn,bn->bhp", state, Cf[:, t])
     return y, state
+
+
+# --- conv_lanes: a 3x3 convolution, stride 1, padding 1, per lane ---------
+# One client's forward and its two gradients, each the call autograd makes
+# for ``F.conv2d``; the ``conv_lanes*_ref`` forms map them over a leading lane
+# dim with ``torch.vmap``, which runs them as the grouped convolution
+# (groups = lanes) that vmap makes of a per-client model.
+
+_CONV = ([1, 1], [1, 1], [1, 1], False, [0, 0], 1)  # stride, padding, dilation, transposed, output padding, groups
+
+
+def conv3x3_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """x (B, Cin, H, W), w (Cout, Cin, 3, 3), b (Cout,) or None -> (B, Cout, H, W)."""
+    return F.conv2d(x, w, b, padding=1)
+
+
+def conv3x3_input_grad_ref(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dL/dx of :func:`conv3x3_ref` from g = dL/dy (x gives the shape)."""
+    return torch.ops.aten.convolution_backward(g, x, w, [w.shape[0]], *_CONV, [True, False, False])[0]
+
+
+def conv3x3_weight_grad_ref(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dL/dw, dL/db) of :func:`conv3x3_ref` from g = dL/dy."""
+    _, gw, gb = torch.ops.aten.convolution_backward(g, x, w, [w.shape[0]], *_CONV, [False, True, True])
+    return gw, gb
+
+
+def conv_lanes_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """x (L, B, Cin, H, W), w (L, Cout, Cin, 3, 3), b (L, Cout) or None -> (L, B, Cout, H, W)."""
+    return torch.vmap(conv3x3_ref, in_dims=(0, 0, None if b is None else 0))(x, w, b)
+
+
+def conv_lanes_input_grad_ref(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """g (L, B, Cout, H, W), x (L, B, Cin, H, W), w (L, Cout, Cin, 3, 3) -> dL/dx (L, B, Cin, H, W)."""
+    return torch.vmap(conv3x3_input_grad_ref)(g, x, w)
+
+
+def conv_lanes_weight_grad_ref(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same -> (dL/dw (L, Cout, Cin, 3, 3), dL/db (L, Cout))."""
+    return torch.vmap(conv3x3_weight_grad_ref)(g, x, w)
