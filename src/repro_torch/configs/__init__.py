@@ -7,5 +7,6 @@ from repro_torch.configs.base import (  # noqa: F401
     list_configs,
     reduced,
     register,
+    YaRN,
 )
 from repro_torch.configs.cifar_cnn import CONFIG, CNNConfig, reduced_cnn  # noqa: F401

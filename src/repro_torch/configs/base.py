@@ -5,7 +5,10 @@ Every ported arch gets a module ``src/repro_torch/configs/<id>.py`` that
 exports ``CONFIG`` (the exact published spec).  ``reduced()`` derives the
 CPU smoke-test variant with exactly the reference's reduced fields.  The
 registry loads every arch module in ``_ARCH_MODULES``: the reference's
-archs, all of them.  ``INPUT_SHAPES`` and ``input_specs()`` give the
+archs, all of them, and one arch of the port's own, ``deepseek-v2-lite``
+(latent attention with YaRN, a leading dense layer, DeepSeekMoE routing),
+whose fields the reference's config lacks; their defaults leave every
+other arch as the reference has it.  ``INPUT_SHAPES`` and ``input_specs()`` give the
 dry-run's (arch, input shape) pairs as shape-and-dtype stand-ins on the
 ``meta`` device (no allocation).
 """
@@ -14,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +40,23 @@ INPUT_SHAPES: Dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class YaRN:
+    """YaRN rope scaling [arXiv:2309.00071] as DeepSeek-V2's
+    ``modeling_deepseek.py`` applies it: the inverse frequencies blend the
+    original ones (fast dims) with ones divided by ``factor`` (slow dims)
+    over a linear ramp between the correction dims of ``beta_fast`` and
+    ``beta_slow`` rotations, and the softmax scale is multiplied by
+    ``mscale(factor, mscale_all_dim)**2``."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -64,6 +84,22 @@ class ModelConfig:
     moe_period: int = 1  # layer i uses MoE iff num_experts>0 and i % moe_period == moe_offset
     moe_offset: int = 0
     capacity_factor: float = 1.25
+    aux_weight: float = 0.01  # the balance term's weight in loss_fn's total
+    # > 0: DeepSeek-V2's expert layer (moe._share: unnormalised top-k gates,
+    # no dropped choice, the balance term per sequence) holding experts
+    # [expert_offset, expert_offset + experts_held) of the num_experts the
+    # router scores, as when each layer's experts are divided over chips;
+    # 0: the capacity-routed layer over all experts
+    experts_held: int = 0
+    expert_offset: int = 0
+    first_dense_layers: int = 0  # leading layers with a dense MLP in a MoE stack
+    dense_d_ff: int = 0  # their MLP width (0 -> d_ff)
+    # --- multi-head latent attention (DeepSeek-V2; kv_lora_rank 0 = off) ---
+    kv_lora_rank: int = 0
+    q_head_dim_nope: int = 0
+    q_head_dim_rope: int = 0
+    v_head_dim: int = 0
+    rope_scaling: Optional[YaRN] = None
     # --- hybrid: attention layer iff i % attn_period == attn_offset ---
     attn_period: int = 1  # 1 => every layer is attention
     attn_offset: int = 0
@@ -100,7 +136,34 @@ class ModelConfig:
         return "attn" if i % self.attn_period == self.attn_offset else "ssm"
 
     def layer_moe(self, i: int) -> bool:
-        return self.num_experts > 0 and i % self.moe_period == self.moe_offset
+        return self.num_experts > 0 and i >= self.first_dense_layers and i % self.moe_period == self.moe_offset
+
+    def mlp_width(self, i: int) -> int:
+        """The dense MLP width of layer i: ``dense_d_ff`` for the leading
+        dense layers of a MoE stack where it is set, else ``d_ff``."""
+        return self.dense_d_ff if i < self.first_dense_layers and self.dense_d_ff else self.d_ff
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def experts_here(self) -> int:
+        """The routed experts this chip holds (all of them without a share)."""
+        return self.experts_held or self.num_experts
+
+    def attn_param_count(self) -> int:
+        d, nh = self.d_model, self.num_heads
+        if self.is_mla:
+            qk = self.q_head_dim_nope + self.q_head_dim_rope
+            r = self.kv_lora_rank
+            return (d * nh * qk + d * (r + self.q_head_dim_rope) + r
+                    + r * nh * (self.q_head_dim_nope + self.v_head_dim) + nh * self.v_head_dim * d)
+        hd, nkv = self.head_dim, self.num_kv_heads
+        total = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+        if self.qkv_bias:
+            total += (nh + 2 * nkv) * hd
+        return total
 
     @property
     def block_period(self) -> int:
@@ -129,9 +192,7 @@ class ModelConfig:
         for i in range(self.num_layers):
             kind = self.layer_kind(i)
             if kind == "attn":
-                total += d * nh * hd + 2 * d * nkv * hd + nh * hd * d
-                if self.qkv_bias:
-                    total += (nh + 2 * nkv) * hd
+                total += self.attn_param_count()
             else:  # ssm
                 di, ds, nhs = self.d_inner, self.ssm_state, self.ssm_heads
                 total += d * (2 * di + 2 * ds + nhs)  # in_proj (z,x,B,C,dt)
@@ -139,11 +200,11 @@ class ModelConfig:
                 total += nhs * 2 + di  # A_log, dt_bias, D
                 total += di * d  # out_proj
             if self.layer_moe(i):
-                ne = self.num_experts + self.num_shared_experts
+                ne = self.experts_here + self.num_shared_experts
                 total += ne * 3 * d * ff + d * self.num_experts
             elif kind == "attn" or self.ssm_state == 0 or self.d_ff > 0:
                 if self.d_ff > 0 and (kind == "attn" or self.family != "ssm"):
-                    total += 3 * d * ff
+                    total += 3 * d * self.mlp_width(i)
             total += 2 * d  # norms
         if self.is_encoder_decoder:
             for _ in range(self.num_encoder_layers):
@@ -158,7 +219,11 @@ class ModelConfig:
         if self.num_experts == 0:
             return self.param_count()
         n_moe_layers = sum(1 for i in range(self.num_layers) if self.layer_moe(i))
-        inactive = (self.num_experts - self.experts_per_token) * 3 * self.d_model * self.d_ff * n_moe_layers
+        expert = 3 * self.d_model * self.d_ff
+        if self.experts_held:  # a token meets k * held / E of the experts held here, on average
+            idle = self.experts_held * (self.num_experts - self.experts_per_token) / self.num_experts
+            return self.param_count() - round(idle * expert) * n_moe_layers
+        inactive = (self.num_experts - self.experts_per_token) * expert * n_moe_layers
         return self.param_count() - inactive
 
 
@@ -198,6 +263,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         changes.update(num_encoder_layers=2, encoder_seq=16)
     if cfg.num_prefix_tokens > 0:
         changes.update(num_prefix_tokens=8)
+    if cfg.is_mla:  # the port's own fields: set only where the arch has them
+        changes.update(kv_lora_rank=min(cfg.kv_lora_rank, 64), q_head_dim_nope=min(cfg.q_head_dim_nope, 32),
+                       q_head_dim_rope=min(cfg.q_head_dim_rope, 16), v_head_dim=min(cfg.v_head_dim, 32))
+    if cfg.dense_d_ff:
+        changes.update(dense_d_ff=min(cfg.dense_d_ff, 512))
+    if cfg.experts_held:
+        changes.update(experts_held=min(cfg.experts_held, changes["num_experts"]), expert_offset=0)
     return dataclasses.replace(cfg, **changes)
 
 
@@ -252,6 +324,7 @@ _ARCH_MODULES = [
     "codeqwen1_5_7b",
     "whisper_large_v3",
     "mamba2_1_3b",
+    "deepseek_v2_lite",
 ]
 
 

@@ -58,7 +58,8 @@ def lm_backend(model_cfg: ModelConfig) -> Backend:
 
     def loss(p, toks, _labels):
         toks = toks.long()
-        l, _ = decoder.loss_fn(model_cfg, decoder.nest_params(p), {"tokens": toks, "labels": toks})
+        l, _ = decoder.loss_fn(model_cfg, decoder.nest_params(p), {"tokens": toks, "labels": toks},
+                               aux_weight=model_cfg.aux_weight)
         return l
 
     gv = grad_and_value(loss)

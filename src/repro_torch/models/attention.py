@@ -12,6 +12,14 @@ probabilities.  Cross-attention (queries over the decoder's S tokens, keys
 over the encoder's frames) is plain PyTorch on either route: no TPU kernel
 computes it (the reference's is plain ``jnp`` too), and ``swa_attention``
 takes one length for queries and keys.
+
+Multi-head latent attention (DeepSeek-V2, ``cfg.kv_lora_rank > 0``):
+:func:`init_mla` and :func:`mla_forward`, the released
+``modeling_deepseek.py`` without a q-LoRA.  q and k are nope + rope wide
+(192 for DeepSeek-V2-Lite) and v another width (128), which
+``swa_attention`` does not take (equal q, k and v dims of 32, 64 or 128), so
+MLA runs the plain masked softmax on either route.  Serving a latent cache
+is not ported (``decoder.init_cache`` refuses MLA).
 """
 from __future__ import annotations
 
@@ -25,7 +33,17 @@ from torch.profiler import record_function
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import spmd
-from repro_torch.models.common import Params, apply_rope, dense_init
+from repro_torch.models.common import (
+    Params,
+    apply_norm,
+    apply_rope,
+    apply_rope_pairs,
+    dense_init,
+    init_norm,
+    rope_freqs,
+    yarn_inv_freq,
+    yarn_mscale,
+)
 
 
 def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
@@ -95,14 +113,16 @@ def _sqrt_in(hd: int, dtype: torch.dtype) -> float:
     return torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype).item()
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Sq,nh,hd), k (B,Sk,nkv,hd) -> scores (B,nh,Sq,Sk) in q's dtype,
-    with GQA grouping: query head h reads KV head h // (nh / nkv)."""
+    with GQA grouping: query head h reads KV head h // (nh / nkv).  The
+    products over √hd rounded to q's dtype, or times ``scale`` where given."""
     B, Sq, nh, hd = q.shape
     nkv = k.shape[2]
     g = nh // nkv
     qg = q.reshape(B, Sq, nkv, g, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) / _sqrt_in(hd, q.dtype)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
+    s = s / _sqrt_in(hd, q.dtype) if scale is None else s * scale
     return s.reshape(B, nh, Sq, k.shape[1])
 
 
@@ -123,11 +143,13 @@ Q_CHUNK = 512
 
 
 def _masked_softmax_attn(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int, causal: bool, window: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int, causal: bool, window: int,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q: (B,Cq,nh,hd); k,v: (B,Sk,nkv,hd). Rows are absolute position
-    q_offset + arange(Cq). Returns (B, Cq, nh*hd)."""
-    scores = _gqa_scores(q, k).float()
+    """q, k: (B,Cq / Sk,nh / nkv,hd); v: (B,Sk,nkv,hv). Rows are absolute
+    position q_offset + arange(Cq); ``scale`` as :func:`_gqa_scores`.
+    Returns (B, Cq, nh*hv)."""
+    scores = _gqa_scores(q, k, scale).float()
     Cq, Sk = scores.shape[-2], scores.shape[-1]
     if causal:
         iq = q_offset + torch.arange(Cq, device=q.device)[:, None]
@@ -207,13 +229,90 @@ def _attend(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window if causal else 0, causal=causal
             )
             return o.transpose(1, 2).reshape(B, S, nh * hd)
-        if S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
-            # one q chunk at a time; never materialise the (S, S) scores
-            return torch.cat(
-                [_masked_softmax_attn(q[:, i : i + Q_CHUNK], k, v, i, causal, window) for i in range(0, S, Q_CHUNK)],
-                dim=1,
-            )
-        return _masked_softmax_attn(q, k, v, 0, causal, window)
+        return _masked_softmax_chunks(q, k, v, causal, window)
+
+
+def _masked_softmax_chunks(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int, scale: Optional[float] = None
+) -> torch.Tensor:
+    """:func:`_masked_softmax_attn` over all of q's rows: over
+    ``CHUNK_THRESHOLD`` tokens one ``Q_CHUNK`` of queries at a time, so the
+    (S, S) scores are never materialised."""
+    S = q.shape[1]
+    if S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
+        return torch.cat(
+            [_masked_softmax_attn(q[:, i : i + Q_CHUNK], k, v, i, causal, window, scale) for i in range(0, S, Q_CHUNK)],
+            dim=1,
+        )
+    return _masked_softmax_attn(q, k, v, 0, causal, window, scale)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
+    """One MLA layer: ``wq`` (q_proj, d -> H (nope + rope)), ``wkv_a``
+    (kv_a_proj_with_mqa, d -> r + rope), ``kv_norm`` (kv_a_layernorm over the
+    r latent dims), ``wkv_b`` (kv_b_proj, r -> H (nope + v)) and ``wo``
+    (o_proj, H v -> d), dense weights (in, out)."""
+    d, nh, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, v = cfg.q_head_dim_nope, cfg.q_head_dim_rope, cfg.v_head_dim
+    return {
+        "wq": dense_init(generator, d, nh * (nope + rope), dtype),
+        "wkv_a": dense_init(generator, d, r + rope, dtype),
+        "kv_norm": init_norm(cfg.norm, r, dtype, generator.device),
+        "wkv_b": dense_init(generator, r, nh * (nope + v), dtype),
+        "wo": dense_init(generator, nh * v, d, dtype),
+    }
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(nope + rope), times YaRN's mscale(factor, mscale_all_dim)^2."""
+    scale = (cfg.q_head_dim_nope + cfg.q_head_dim_rope) ** -0.5
+    y = cfg.rope_scaling
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
+def _mla_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The rope part (..., S, H, rope) rotated: YaRN's frequencies and its
+    cos/sin factor mscale(factor, mscale) / mscale(factor, mscale_all_dim)
+    where ``cfg.rope_scaling`` is set, plain frequencies otherwise."""
+    y, dim = cfg.rope_scaling, cfg.q_head_dim_rope
+    if y is None:
+        return apply_rope_pairs(x, positions, rope_freqs(dim, cfg.rope_theta, x.device))
+    inv_freq = yarn_inv_freq(dim, cfg.rope_theta, y, x.device)
+    scale = yarn_mscale(y.factor, y.mscale) / yarn_mscale(y.factor, y.mscale_all_dim)
+    return apply_rope_pairs(x, positions, inv_freq, scale)
+
+
+def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal MLA: x (B, S, d), positions (S,) or (B, S) ->
+    (B, S, d).  q = x wq split into nope and rope parts per head; the
+    latent c = kv_norm(x wkv_a[:r]) gives each head's k nope and v through
+    ``wkv_b``; the rope key x wkv_a[r:] is one per token, shared by the
+    heads; both rope parts rotated (:func:`_mla_rope`); then the plain
+    masked softmax (:func:`_masked_softmax_chunks`)."""
+    B, S, _ = x.shape
+    nh, r = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, vd = cfg.q_head_dim_nope, cfg.q_head_dim_rope, cfg.v_head_dim
+    pos_b = positions if positions.dim() == 2 else positions[None, :]
+    with record_function("lm.mla.q"):
+        q = (x @ p["wq"]).reshape(B, S, nh, nope + rope)
+        q = torch.cat([q[..., :nope], _mla_rope(cfg, q[..., nope:], pos_b)], dim=-1)
+    with record_function("lm.mla.kv"):
+        ckv = x @ p["wkv_a"]
+        kv = (apply_norm(cfg.norm, p["kv_norm"], ckv[..., :r], cfg.norm_eps) @ p["wkv_b"]).reshape(B, S, nh, nope + vd)
+        k_rope = _mla_rope(cfg, ckv[..., None, r:], pos_b).expand(B, S, nh, rope)
+        k = torch.cat([kv[..., :nope], k_rope], dim=-1)
+        v = kv[..., nope:]
+    with record_function("lm.attn"):  # the scores in q's dtype, the softmax in fp32, as the released code
+        o = _masked_softmax_chunks(q, k, v, True, 0, mla_softmax_scale(cfg))
+    with record_function("lm.out_proj"):
+        return o @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

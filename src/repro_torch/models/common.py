@@ -76,6 +76,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 * mscale * ln(scale) + 1 above scale 1."""
+    return 0.1 * mscale * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn, device=None) -> torch.Tensor:
+    """(dim/2,) inverse frequencies of a YaRN-scaled rope (``configs.base.YaRN``),
+    as DeepSeek-V2's ``DeepseekV2YarnRotaryEmbedding`` makes them: the
+    original frequencies where a dim turns more than ``beta_fast`` times
+    over ``original_max_position``, those divided by ``factor`` where it
+    turns fewer than ``beta_slow`` times, a linear ramp between."""
+    base = rope_freqs(dim, theta, device)
+
+    def correction_dim(rotations: float) -> float:
+        return dim * math.log(yarn.original_max_position / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(correction_dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(correction_dim(yarn.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device) - low) / (high - low), 0, 1)
+    extrapolate = 1.0 - ramp
+    return base / yarn.factor * (1 - extrapolate) + base * extrapolate
+
+
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                     scale: float = 1.0) -> torch.Tensor:
+    """Rope over interleaved pairs, in ``modeling_deepseek.py``'s layout:
+    x (..., S, H, d) is read as pairs (x[2i], x[2i+1]), each rotated by
+    positions * inv_freq[i], and written out as [first of each pair,
+    second of each pair] (the released code's view-transpose before
+    ``rotate_half``), in fp32, times ``scale``, cast back."""
+    angles = positions[..., None].float() * inv_freq  # (..., S, d/2)
+    cos = (torch.cos(angles) * scale)[..., None, :]
+    sin = (torch.sin(angles) * scale)[..., None, :]
+    pairs = x.float().unflatten(-1, (-1, 2))
+    x1, x2 = pairs[..., 0], pairs[..., 1]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP (gated silu / plain gelu).  ``jax.nn.gelu`` defaults to the tanh
 # approximation, so this one does too (PyTorch's default is erf).

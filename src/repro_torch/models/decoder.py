@@ -119,7 +119,7 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
 def _init_layer(g: torch.Generator, cfg: ModelConfig, i: int, dtype: torch.dtype, cross: bool = False) -> Params:
     p: Params = {"norm1": init_norm(cfg.norm, cfg.d_model, dtype, g.device)}
     if cfg.layer_kind(i) == "attn":
-        p["attn"] = attn_lib.init_attn(g, cfg, dtype)
+        p["attn"] = attn_lib.init_mla(g, cfg, dtype) if cfg.is_mla else attn_lib.init_attn(g, cfg, dtype)
     else:
         p["ssm"] = ssd_lib.init_ssd(g, cfg, dtype)
     if cross:
@@ -130,7 +130,7 @@ def _init_layer(g: torch.Generator, cfg: ModelConfig, i: int, dtype: torch.dtype
         if cfg.layer_moe(i):
             p["moe"] = moe_lib.init_moe(g, cfg, dtype)
         else:
-            p["mlp"] = init_mlp(g, cfg.d_model, cfg.d_ff, cfg.act, dtype)
+            p["mlp"] = init_mlp(g, cfg.d_model, cfg.mlp_width(i), cfg.act, dtype)
     return p
 
 
@@ -260,7 +260,9 @@ def _run_block(
             p = spmd.gather_fsdp(p)
         with record_function("lm.norm"):
             h = spmd.tp_input(apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps))
-        if "attn" in p:
+        if "attn" in p and cfg.is_mla:
+            a = attn_lib.mla_forward(cfg, p["attn"], h, positions)
+        elif "attn" in p:
             a = attn_lib.attn_forward(cfg, p["attn"], h, positions, causal=causal, window=window, use_kernel=use_kernel)
         else:
             a = ssd_lib.ssd_forward(cfg, p["ssm"], h, use_kernel=use_kernel)
@@ -488,6 +490,14 @@ def feature_vector(
 # ---------------------------------------------------------------------------
 
 
+def _refuse_mla(cfg: ModelConfig) -> None:
+    if cfg.is_mla:
+        raise NotImplementedError(
+            f"{cfg.name} uses multi-head latent attention: its latent cache is not ported, so it cannot be served "
+            "token by token (its full-sequence forward, loss and feature taps run)"
+        )
+
+
 def init_cache(
     cfg: ModelConfig,
     batch: int,
@@ -502,7 +512,9 @@ def init_cache(
     layers the conv history in the model dtype and the state in fp32, which
     do not grow with ``length``.  ``cross_cache`` (an encoder-decoder) adds
     zero ``ck``/``cv`` planes (B, encoder_seq, Hkv, hd) to every layer, for
-    :func:`prefill_cross_cache` to fill."""
+    :func:`prefill_cross_cache` to fill.  Latent attention (MLA) has no
+    cache here: serving it is not ported."""
+    _refuse_mla(cfg)
     device = resolve_device(device)
     W = min(length, cfg.sliding_window) if (cfg.sliding_window and not rolling) else length
     caches = []
@@ -547,6 +559,7 @@ def decode_step(
     where it has them, else projects ``encoder_out``; with neither it is
     skipped, as in the reference.  MoE layers route each token alone (one
     group of one token: nothing is dropped)."""
+    _refuse_mla(cfg)
     roll = rolling or cfg.sliding_window > 0
     x = _embed(params["embed"], tokens).to(cfg.dtype)
     if "pos_embed" in params:

@@ -22,6 +22,21 @@ step waits on the host):
 
 The expert products are batched matmuls (``torch.bmm``), outside any
 kernel, as in the reference.
+
+DeepSeek-V2's expert layer (``cfg.experts_held`` > 0) is another
+function: the router scores all ``num_experts`` (softmax in fp32, top-k,
+the gates as they are, not renormalised), and this chip holds experts
+``[expert_offset, expert_offset + experts_held)`` of them, as when each
+layer's experts are divided over chips; it computes its own experts' part
+of the result and adds the shared experts' (every chip computes those
+alike), and the absent experts' part is left out.  Dropless with fixed
+shapes: every held expert computes every token, and each token takes its
+experts' outputs under its gates, 0 for an expert it did not choose
+(:func:`_share`).  The balance term is DeepSeek's, per sequence.
+
+``COUNTS`` sums, from shapes alone (no synchronisation), the expert-MLP
+rows each call computed (``rows``) and the tokens that entered an expert
+layer (``tokens``); under ``vmap`` a call sees, and counts, one lane.
 """
 from __future__ import annotations
 
@@ -30,18 +45,29 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import spmd
 from repro_torch.models.common import Params, apply_mlp, dense_init, init_mlp
 
 GROUP_SIZE = 512
+COUNTS = {"rows": 0, "tokens": 0}
+
+
+def reset_counts() -> None:
+    COUNTS.update(rows=0, tokens=0)
+
+
+def _count(rows: int, tokens: int) -> None:
+    COUNTS["rows"] += int(rows)
+    COUNTS["tokens"] += int(tokens)
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
     """One layer's experts, drawn from ``generator`` on its device: each
     (E, d, ff) stack drawn whole in fp32, then cast."""
-    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.experts_here
     dev = generator.device
 
     def stack(rows: int, cols: int) -> torch.Tensor:
@@ -49,7 +75,7 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -
         return (w * (1.0 / math.sqrt(rows))).to(dtype)
 
     p: Params = {
-        "router": dense_init(generator, d, E, torch.float32),  # router kept fp32
+        "router": dense_init(generator, d, cfg.num_experts, torch.float32),  # router kept fp32, over all experts
         "w_gate": stack(d, ff),
         "w_up": stack(d, ff),
         "w_down": stack(ff, d),
@@ -145,29 +171,71 @@ def _combine(ye: torch.Tensor, rows: torch.Tensor, gates: torch.Tensor, dtype: t
     return torch.einsum("bgtkd,bgtk->bgtd", picked.float(), gates).to(dtype).reshape(B, ng * G, d)
 
 
+def _share_gates(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V2's routing of x (B, S, d) over all ``num_experts``: the
+    gates of the experts held here (B, S, held) in fp32, 0 where a token
+    did not choose the expert, and the balance term (fp32)."""
+    S = x.shape[1]
+    E, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(x.float() @ router, dim=-1)  # (B, S, E)
+    top_vals, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_vals, top_idx = top_vals[..., :k], top_idx[..., :k]
+    choice = torch.zeros_like(probs).scatter(-1, top_idx, 1.0)  # (B, S, E) in {0, 1}
+    gates = torch.zeros_like(probs).scatter(-1, top_idx, top_vals)
+    # per sequence: sum_e (choices of e / (S k / E)) * mean_s p_e, averaged over sequences
+    aux = ((choice.sum(dim=1) * (E / (S * k))) * probs.mean(dim=1)).sum(dim=-1).mean()
+    lo = cfg.expert_offset
+    return gates[..., lo : lo + cfg.experts_here], aux
+
+
+def _share(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The held experts' part of the layer: every held expert over every
+    token, each output times the token's gate for it (rounded to the model
+    dtype), summed in fp32 by the down projection, rounded once."""
+    with record_function("lm.moe.route"):
+        gates, aux = _share_gates(cfg, p["router"], x)
+    with record_function("lm.moe.experts"):
+        B, S, _ = x.shape
+        held = gates.shape[-1]
+        h = F.silu(torch.einsum("bsd,edf->bsef", x, p["w_gate"])) * torch.einsum("bsd,edf->bsef", x, p["w_up"])
+        y = torch.einsum("bsef,efd->bsd", h * gates.to(x.dtype)[..., None], p["w_down"])
+        _count(held * B * S, B * S)
+    return y, aux
+
+
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux loss fp32).  Tokens past an expert's
-    capacity in their group are dropped from that expert.
+    capacity in their group are dropped from that expert; DeepSeek-V2's
+    expert layer (an expert share, ``cfg.experts_held``) is :func:`_share`.
 
     On DTensors each batch shard routes and dispatches its own tokens
     (routing is per sequence group, so this is the same function), the
     expert products shard the experts over ``model`` (the slots' batch
     stays over the data axes), and each shard combines its own tokens from
-    every expert's outputs; the aux loss is the mean of the shards'."""
-    B = x.shape[0]
-    tok = (spmd.BATCH, None, None, None)
-    slots, rows, gates, aux = spmd.local(
-        lambda x_, r_: _dispatch(cfg, x_, r_),
-        [(None, spmd.BATCH, None), tok, tok, spmd.PARTIAL_AVG],
-        [(spmd.BATCH, None, None), (None, None)],
-        x, p["router"], grad_sums=[None, "batch"],
-    )
-    ye = _experts(p, slots)
-    y = spmd.local(
-        lambda ye_, rows_, gates_: _combine(ye_, rows_, gates_, x.dtype),
-        (spmd.BATCH, None, None), [(None, spmd.BATCH, None), tok, tok],
-        ye, rows, gates, batch=B,
-    )
+    every expert's outputs; the aux loss is the mean of the shards'.
+    Spans: ``lm.moe.route`` (here the routing and the slot writes),
+    ``lm.moe.experts`` (the products and the combine), ``lm.moe.shared``."""
+    if cfg.experts_held:
+        y, aux = _share(cfg, p, x)
+    else:
+        B = x.shape[0]
+        tok = (spmd.BATCH, None, None, None)
+        with record_function("lm.moe.route"):
+            slots, rows, gates, aux = spmd.local(
+                lambda x_, r_: _dispatch(cfg, x_, r_),
+                [(None, spmd.BATCH, None), tok, tok, spmd.PARTIAL_AVG],
+                [(spmd.BATCH, None, None), (None, None)],
+                x, p["router"], grad_sums=[None, "batch"],
+            )
+        with record_function("lm.moe.experts"):
+            ye = _experts(p, slots)
+            y = spmd.local(
+                lambda ye_, rows_, gates_: _combine(ye_, rows_, gates_, x.dtype),
+                (spmd.BATCH, None, None), [(None, spmd.BATCH, None), tok, tok],
+                ye, rows, gates, batch=B,
+            )
+            _count(slots.shape[0] * slots.shape[1], x.shape[0] * x.shape[1])
     if cfg.num_shared_experts > 0:
-        y = y + apply_mlp(p["shared"], x, "silu")
+        with record_function("lm.moe.shared"):
+            y = y + apply_mlp(p["shared"], x, "silu")
     return y, aux
