@@ -7,11 +7,11 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. Device: the card's name and power limit as nvidia-smi reports them.
-2. Build: the five Hopper kernels from ``src/repro_torch/csrc`` with nvcc
+2. Build: the six Hopper kernels from ``src/repro_torch/csrc`` with nvcc
    (sm_90a), one nvcc per source, all started together; ptxas' registers,
-   spills and shared memory for each ssd_scan and swa_attention instance
-   (the bf16 tensor-core instances the prefills run, ssd_scan's at ds = 128
-   and swa_attention's at D = 128, must not spill).
+   spills and shared memory for each ssd_scan, swa_attention and
+   mla_attention instance (the bf16 tensor-core instances the prefills run,
+   ssd_scan's at ds = 128 and swa_attention's at D = 128, must not spill).
 3. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes (timed with CUDA events; the EHFL kernels also by their
    device time under torch.profiler, without the wrapper's host time) and
@@ -44,7 +44,12 @@ result line):
    head dims 64 and 128, GQA groups 1 to 8, whisper's encoder non-causal
    over 1500 frames; ZOO_SSD_SHAPE, jamba's scan at ds 16 over 128 heads),
    bf16, each element within its limit, timed beside the plain version and
-   (attention) SDPA.  Last conv_lanes (CONV_LANES_SHAPES: the paper CNN's six
+   (attention) SDPA.  mla_attention at the LM cell's shapes (MLA_SHAPES:
+   B 4 and 16, S 2048, 16 heads, q/k 192, v 128), forward and backward, each
+   element within ``reference_and_limits`` (the plain bf16 path must fail
+   the forward's), timed beside its bound, the plain version and SDPA, and
+   its launches in one epoch of the LM cell (MLA_CELL_LAUNCHES: 45 forward,
+   20 backward).  Last conv_lanes (CONV_LANES_SHAPES: the paper CNN's six
    convolutions, 100 and then 10 lanes of 15 images), each direction within
    ``conv_lanes_limit`` of its plain version in strict fp32, timed in turns
    with it and the grouped ``F.conv2d`` call, beside its bound.
@@ -1184,6 +1189,133 @@ def conv_lanes_pass(torch, ref, dev, L: int) -> list:
     return rows
 
 
+# mla_attention at the LM cell's shapes: 16 heads, q/k 192, v 128, S 2048;
+# B 4 is a 2-lane x 2-sequence .grad / .feature call folded into the batch,
+# B 16 the probe.  One cell epoch without eval launches it 5 layers x (4
+# .grad + 4 .feature + 1 probe) times forward and 5 x 4 backward.
+MLA_SHAPES, MLA_HEADS, MLA_DK, MLA_DV = ((4, 2048), (16, 2048)), 16, 192, 128
+MLA_CELL = "deepseek-v2-lite-5l-ep8.n8.vaoi"
+MLA_CELL_LAUNCHES = {"launches_forward": 45, "launches_backward": 20}
+# the backward's needed products over the forward's: dV = P^T dO and dP = dO V^T
+# over v's width, dK = dS^T Q and dQ = dS K over q/k's, against S = Q K^T and
+# P V; the kernel's recomputation of S is its design's, not the function's
+MLA_BACKWARD_FLOPS = (2 * MLA_DV + 2 * MLA_DK) / (MLA_DK + MLA_DV)
+
+
+def mla_cell_epoch_launches(torch, dev, seed: int = 3300000001) -> dict:
+    """mla_attention's launches by direction in one epoch of the LM cell
+    after its settling epochs, through the benchmark's own set-up."""
+    from repro_torch.kernels import mla_attention as kmla
+    from repro_torch.kernels import ops
+
+    root = Path(__file__).resolve().parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from ehfl_bench import run as bench_run
+    from ehfl_bench import world
+
+    w = bench_run.build(world.load_cell(MLA_CELL), seed, dev)
+    t = bench_run.settle(w)
+    if (t + 1) % w.cfg.eval_every == 0:
+        raise AssertionError(f"epoch {t} of {MLA_CELL} evaluates; the count is of an epoch without eval")
+    ops.reset_launch_counts()
+    bench_run.run_epochs(w, t, lambda run: run == 1, [])
+    torch.cuda.synchronize()
+    counts = {d: getattr(kmla.mla_attention, d) for d in MLA_CELL_LAUNCHES}
+    del w
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mla_attention(torch, ref, dev) -> list:
+    """Phase 3 (mla_attention): the kernel at MLA_SHAPES, forward and forward
+    plus backward, each output held element by element to
+    ``reference_and_limits`` (the plain bf16 path, scores rounded to bf16,
+    must fail the forward's); timed on the event clock and by the kernels'
+    own device time, beside its bound (the causal core's operations at the
+    bf16 peak, MLA_BACKWARD_FLOPS times that backward), the plain version
+    and SDPA (the yardstick only); then its launches in one epoch of the LM
+    cell."""
+    from repro_torch.kernels import mla_attention as kmla
+
+    F = torch.nn.functional
+    scale = MLA_DK**-0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2  # DeepSeek-V2-Lite's, YaRN's mscale included
+    g = torch.Generator(device=dev).manual_seed(30)
+    rows = []
+    for b, s in MLA_SHAPES:
+        def draw(*shape):
+            return torch.randn(b, s, MLA_HEADS, *shape, generator=g, device=dev).to(torch.bfloat16)
+
+        q, k, kv, do = draw(MLA_DK), draw(MLA_DK), draw(256), draw(MLA_DV)
+        v = kv[..., 128:]  # as the model passes it: a strided view of the kv projection
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = kmla.mla_attention(*leaves, scale)
+        o.backward(do.flatten(2))
+        got = {"o": o.detach().unflatten(2, (MLA_HEADS, MLA_DV)), "dq": leaves[0].grad, "dk": leaves[1].grad,
+               "dv": leaves[2].grad}
+        want, lim = kmla.reference_and_limits(q, k, v, do, scale)
+        ratios = {n: ((got[n].float() - want[n]).abs() / lim[n]).max().item() for n in want}
+        gaps = {n: ((got[n].float() - want[n]).abs().max() / want[n].abs().max()).item() for n in want}
+        plain = ref.mla_attention_ref(q, k, v, scale).unflatten(2, (MLA_HEADS, MLA_DV))
+        plain_ratio = ((plain.float() - want["o"]).abs() / lim["o"]).max().item()
+        del got, want, lim, plain, o
+        if max(ratios.values()) > 1.0 or plain_ratio <= 1.0:
+            raise AssertionError(f"mla_attention {(b, s)}: ratios to the limits {ratios} (each must be <= 1); the "
+                                 f"plain bf16 path's {plain_ratio} must exceed 1")
+
+        def fwd():
+            return kmla.mla_attention(q, k, v, scale)
+
+        def fwd_bwd(core=kmla.mla_attention):
+            for t in leaves:
+                t.grad = None
+            core(*leaves, scale).backward(do.flatten(2))
+
+        def lib_fwd(req=False):
+            args = [t.detach().transpose(1, 2).requires_grad_(req) for t in (q, k, v)]
+            return F.scaled_dot_product_attention(*args, is_causal=True, scale=scale), args
+
+        def lib_fwd_bwd():
+            out, _ = lib_fwd(True)
+            out.backward(do.transpose(1, 2))
+
+        flops = 2 * b * MLA_HEADS * (MLA_DK + MLA_DV) * s * (s + 1) // 2  # forward_flops' core term
+        bound_fwd = flops / BF16_FLOPS * 1e3
+        times = {"ms": time_ms(fwd, iters=20), "fwd_bwd_ms": time_ms(fwd_bwd, iters=10, warmup=2),
+                 "plain_ms": time_ms(lambda: ref.mla_attention_ref(q, k, v, scale), iters=5, warmup=1),
+                 "plain_fwd_bwd_ms": time_ms(lambda: fwd_bwd(ref.mla_attention_ref), iters=3, warmup=1)}
+        try:  # the yardstick only: the port never calls SDPA
+            times.update(library_ms=time_ms(lambda: lib_fwd()[0], iters=10, warmup=2),
+                         library_fwd_bwd_ms=time_ms(lib_fwd_bwd, iters=10, warmup=2), library_failed=None)
+        except (RuntimeError, TypeError) as e:
+            times.update(library_ms=None, library_fwd_bwd_ms=None, library_failed=repr(e)[:300])
+        row = {
+            "kernel": "mla_attention", "shape": [b, s, MLA_HEADS, MLA_DK, MLA_DV], "dtype": "bfloat16, v strided",
+            "max_ratio_to_limit": ratios, "max_gap_over_largest": gaps, "plain_bf16_o_ratio_to_limit": plain_ratio,
+            "max_abs_err": max(gaps.values()), **times,
+            "bound_ms": bound_fwd, "bound_fwd_bwd_ms": (1 + MLA_BACKWARD_FLOPS) * bound_fwd, "bound_by": "operations",
+            "bound_peak": "bf16 tensor cores, 989 TFLOP/s", "gflop_forward": flops / 1e9,
+            "library": "scaled_dot_product_attention(is_causal=True, scale=scale)",
+        }
+        row.update(bound_share=bound_fwd / row["ms"], fwd_bwd_bound_share=row["bound_fwd_bwd_ms"] / row["fwd_bwd_ms"])
+        add_device_ms(row, fwd, lambda: lib_fwd()[0])
+        # the three kernels' own time a forward plus backward: at B 4 the
+        # event clock above also holds the autograd engine's host time
+        row.update(fwd_bwd_device_ms=device_ms(fwd_bwd, iters=10, only="mla_")["ms"])
+        row.update(fwd_bwd_device_bound_share=row["bound_fwd_bwd_ms"] / row["fwd_bwd_device_ms"])
+        log(json.dumps({"phase": "p3_mla_attention", **row}))
+        rows.append(row)
+        del q, k, kv, v, do, leaves
+        torch.cuda.empty_cache()
+
+    counts = mla_cell_epoch_launches(torch, dev)
+    log(json.dumps({"phase": "p3_mla_attention_cell_epoch", "cell": MLA_CELL, "launches": counts,
+                    "expected": MLA_CELL_LAUNCHES}))
+    if counts != MLA_CELL_LAUNCHES:
+        raise AssertionError(f"mla_attention launches in one epoch of {MLA_CELL}: {counts} != {MLA_CELL_LAUNCHES}")
+    return rows
+
+
 def phase_ssd_kernel(torch, ref, kern_ssd, dev):
     """Phase 3 (ssd_scan): the prefill shape with bf16 strided inputs on the
     tensor-core route, each element within ssd_bf16_limit, beside a plain
@@ -2165,7 +2297,7 @@ def phase_scenarios(torch, sim, cfg, backend, data, TorchDraws, ops, dev, smi):
     dd = sim.to_device_data(data, dev)
     for name, kw in SCENARIO_RUNS:
         scfg = dataclasses.replace(cfg, **kw)
-        want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+        want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0, "mla_attention": 0,
                 "conv_lanes": T * cnn_conv_launches(scfg.kappa, scfg.policy)}
         draws = TorchDraws(seed=scfg.seed)
         ops.reset_launch_counts()
@@ -2221,6 +2353,7 @@ def phase_run_batch(torch, sim, cfg, backend, data, ops, dev, smi, solo_wall_s):
     wall = time.perf_counter() - t0
     launches, row_groups = ops.launch_counts(), ops.row_group_count()
     want = {"vaoi_distance": R * T, "fedavg_reduce": R * T, "ssd_scan": 0, "swa_attention": 0,
+            "mla_attention": 0,
             "conv_lanes": R * T * cnn_conv_launches(cfg.kappa, cfg.policy)}
     if launches != want or row_groups != 2 * R * T:
         raise AssertionError(f"run_batch: kernel launches {launches} != {want} or fedavg_reduce row groups "
@@ -2332,7 +2465,7 @@ def phase_fleet_nccl(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev
     import torch.distributed as dist
 
     T = cfg.epochs
-    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0, "mla_attention": 0,
             "conv_lanes": T * cnn_conv_launches(cfg.kappa, cfg.policy)}
     with tempfile.TemporaryDirectory(prefix="fleet-") as tmp:
         backend_name = "nccl" if dev.type == "cuda" else "gloo"  # gloo: a rehearsal on the CPU
@@ -2529,7 +2662,7 @@ def phase_fleet_gloo(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev
                           "n_delivered": solo_m["n_delivered"].item(), **cmp})
     if not sum(e["n_started"] for e in per_epoch) > 0:
         raise AssertionError(f"10b: no client trained in the compared epochs {[e['epoch'] for e in per_epoch]}")
-    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0, "mla_attention": 0,
             "conv_lanes": T * cnn_conv_launches(cfg.kappa, cfg.policy)}
     runs_b = [rk["run_b"] for rk in ranks]
     for r, rb in enumerate(runs_b):
@@ -2556,6 +2689,7 @@ def phase_fleet_gloo(torch, sim, fleet, cfg, backend, data, TorchDraws, ops, dev
     # 10c: fleet scale
     Tc = T
     want_c = {"vaoi_distance": Tc, "fedavg_reduce": Tc, "ssd_scan": 0, "swa_attention": 0,
+              "mla_attention": 0,
               "conv_lanes": Tc * cnn_conv_launches(cfg.kappa, cfg.policy)}
     runs_c = [rk["run_c"] for rk in ranks]
     for r, rc in enumerate(runs_c):
@@ -2790,7 +2924,8 @@ def phase_lm_training(torch, dev, ops, ref, kern_fedavg, smi):
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     per_round = {"vaoi_distance": 1, "fedavg_reduce": leaf_launches([(t.shape, t.dtype) for t in flat.values()]),
                  "ssd_scan": 0,
-                 "swa_attention": n_attn * (1 + d["k"]), "conv_lanes": 0}  # the probe, then each client's refresh
+                 "swa_attention": n_attn * (1 + d["k"]), "conv_lanes": 0,
+                 "mla_attention": 0}  # the probe, then each client's refresh
 
     # 12a: the training rounds, the main path of this phase
     counts = []
@@ -2965,7 +3100,8 @@ def counted_lm_run(torch, ops, sim, cfg, mcfg, data, dev):
     params = decoder.flat_params(decoder.init_params(mcfg, seed=0, device=dev))
     kinds = [mcfg.layer_kind(i) for i in range(mcfg.num_layers)]
     per_epoch = {"vaoi_distance": 1, "fedavg_reduce": leaf_launches([(t.shape, t.dtype) for t in params.values()]),
-                 "ssd_scan": kinds.count("ssm"), "swa_attention": kinds.count("attn"), "conv_lanes": 0}
+                 "ssd_scan": kinds.count("ssm"), "swa_attention": kinds.count("attn"), "conv_lanes": 0,
+                 "mla_attention": 0}
     backend = lm_backend(mcfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3263,6 +3399,7 @@ def phase_drivers(torch, dev, ops, smi):
     gallery = len(q.GALLERY_SEEDS) * QUICK_GALLERY_EPOCHS * len(rows["scenarios"])
     want = {"vaoi_distance": QUICK_EPOCHS * ("vaoi" in [r["policy"] for r in rows["policies"]]) + gallery,
             "fedavg_reduce": QUICK_EPOCHS * len(rows["policies"]) + gallery, "ssd_scan": 0, "swa_attention": 0,
+            "mla_attention": 0,
             "conv_lanes": sum(QUICK_EPOCHS * cnn_conv_launches(QUICK_KAPPA, r["policy"]) for r in rows["policies"])
             + gallery * cnn_conv_launches(QUICK_KAPPA, "vaoi")}
     f1s = [r["f1"] for r in rows["policies"]] + [r["f1_mean"] for r in rows["scenarios"]]
@@ -3287,6 +3424,7 @@ def phase_drivers(torch, dev, ops, smi):
             grid.CACHE = cache
     runs = len(st["seeds"]) * st["epochs"]
     want = {"vaoi_distance": runs, "fedavg_reduce": runs, "ssd_scan": 0, "swa_attention": 0,
+            "mla_attention": 0,
             "conv_lanes": runs * cnn_conv_launches(QUICK_KAPPA, DRIVER_CELL[0])}
     log(json.dumps({"phase": "p14_grid_cell", "cell": DRIVER_CELL, "settings": st, "wall_s": cell_s,
                     "seeds_per_hour_at_T500": 3600.0 / (cell_s / runs * 500), "final_f1": rec["f1"][-1],
@@ -3304,7 +3442,8 @@ def bench_row_launches(cfg, launches, row_groups) -> dict | None:
     over two row groups when compacted (the slab and the old-carrier stack)
     or one when dense; the expectation, where the row missed it."""
     want = {"vaoi_distance": cfg.epochs * cfg.policy.startswith("vaoi"), "fedavg_reduce": cfg.epochs,
-            "ssd_scan": 0, "swa_attention": 0, "conv_lanes": cfg.epochs * cnn_conv_launches(cfg.kappa, cfg.policy)}
+            "ssd_scan": 0, "swa_attention": 0, "mla_attention": 0,
+            "conv_lanes": cfg.epochs * cnn_conv_launches(cfg.kappa, cfg.policy)}
     groups = cfg.epochs * (2 if cfg.compact == "auto" else 1)
     return None if launches == want and row_groups == groups else {"launches": want, "row_groups": groups}
 
@@ -3548,6 +3687,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.2f} s for {list(build.KERNELS)}")
+    for r in build.ptxas_report("mla_attention"):
+        log(json.dumps({"phase": "ptxas", "kernel": "mla_attention", **r}))
     # the bf16 tensor-core instances the prefills run must not spill
     for name, prefill_instance in (("ssd_scan", "ssd_tc_kernelILi2E"), ("swa_attention", "swa_tc_kernelILi128E")):
         report = build.ptxas_report(name)
@@ -3563,6 +3704,7 @@ def main() -> int:
     kresults = phase_kernels(torch, ref, kern_vaoi, vaoi_floor, kern_fedavg, kern_leaves, dev)
     kresults["ssd_scan"] = [phase_ssd_kernel(torch, ref, kern_ssd, dev)]
     kresults["swa_attention"] = [phase_swa_kernel(torch, ref, kern_swa, dev)]
+    kresults["mla_attention"] = phase_mla_attention(torch, ref, dev)
     conv_passes = phase_conv_lanes(torch, ref, dev)
     kresults["conv_lanes"] = conv_passes[CONV_LANES[0]]
     zoo_rows = phase_zoo_kernels(torch, ref, kern_swa, kern_ssd, dev)
@@ -3583,7 +3725,7 @@ def main() -> int:
     gpu_s = time.perf_counter() - t0
     launches, row_groups, conv_dirs = ops.launch_counts(), ops.row_group_count(), conv_direction_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0,
+    want = {"vaoi_distance": T, "fedavg_reduce": T, "ssd_scan": 0, "swa_attention": 0, "mla_attention": 0,
             "conv_lanes": T * cnn_conv_launches(cfg.kappa, cfg.policy)}
     want_dirs = {k: T * v for k, v in cnn_conv_directions(cfg.kappa, cfg.policy).items()}
     log(json.dumps({"phase": "slice_gpu", "launches": launches, "expected": want, "fedavg_row_groups": row_groups,
@@ -3768,10 +3910,14 @@ def main() -> int:
     for e in (*ehfl, ssd, swa):  # phase 15: the kernels bench's rows, the stream and channel rows' launches
         e.update(phase15_bench_rows=[r for r in bench_kernel_rows if r["name"].startswith(f"kernel/{e['name']}/")],
                  launches_phase15=bench_launches[e["name"]])
+    mla = entry("mla_attention", "src/repro_torch/csrc/mla_attention.cu", "none (the JAX package has no MLA)",
+                kresults["mla_attention"], launches)
+    mla.update(rows=kresults["mla_attention"], cell_epoch_launches=MLA_CELL_LAUNCHES)
     log(json.dumps({"phase_seconds": seconds, "total_s": time.perf_counter() - start}))
     log(json.dumps({"kernels": [
         *ehfl,
         conv,
+        mla,
         ssd,
         swa,
     ]}))

@@ -46,6 +46,8 @@ def lm_backend(model_cfg: ModelConfig) -> Backend:
     through ``ssd_scan``) on the card; ``grad_loss`` and ``feature`` run the
     plain forms, which ``torch.func.vmap`` batches over the clients (a
     routed stack too: ``models/moe.py``'s dispatch has fixed shapes).
+    Latent attention (MLA) takes its ``mla_attention`` kernel in every
+    pass on CUDA bf16, its vmap rules folding the clients into one launch.
 
     Takes every decoder-only arch; raises ``ValueError`` for an
     encoder-decoder, whose forward needs encoder frames that the

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launcher, so it compiles in seconds
 without PyTorch's headers.  One ``nvcc`` runs per source, all started
-together.  A library is named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is compiled when a
+together.  A library is named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.  Nothing is compiled when a
 module is imported: the CPU has no ``nvcc`` and never needs one.
 :func:`launch_stream` is the launchers' common device check.
 """
@@ -23,7 +24,7 @@ from typing import Dict, List, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"  # listed in .gitignore
-KERNELS = ("vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention", "conv_lanes")
+KERNELS = ("vaoi_distance", "fedavg_reduce", "ssd_scan", "swa_attention", "conv_lanes", "mla_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,8 +43,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

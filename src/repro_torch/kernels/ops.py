@@ -9,6 +9,8 @@ import torch
 
 from repro_torch.kernels import conv_lanes as _conv
 from repro_torch.kernels import ref
+from repro_torch.kernels.mla_attention import mla_attention as _mla_attention
+from repro_torch.kernels.mla_attention import takes_kernel as _mla_takes_kernel
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce as _fedavg_reduce
 from repro_torch.kernels.fedavg_reduce import fedavg_reduce_leaves as _fedavg_reduce_leaves
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
@@ -21,6 +23,7 @@ KERNELS = {
     "ssd_scan": _ssd_scan,
     "swa_attention": _swa_attention,
     "conv_lanes": _conv.conv_lanes,
+    "mla_attention": _mla_attention,
 }
 
 
@@ -95,6 +98,17 @@ def conv_lanes_weight_grad(g, x, w):
     return _conv.weight_grad(g, x, kernel_size=tuple(w.shape[-2:]))
 
 
+def mla_attention(q, k, v, scale: float):
+    """The causal core of multi-head latent attention: q, k (B, S, H, 192),
+    v (B, S, H, 128) -> (B, S, H*128) in q's dtype; differentiable, and one
+    launch a direction under ``torch.func.vmap`` on the card.  CUDA bf16
+    inputs take the kernel, everything else (the CPU, fp32) the plain
+    version, chosen from what q shows, with no fallback."""
+    if _mla_takes_kernel(q):
+        return _mla_attention(q, k, v, scale)
+    return ref.mla_attention_ref(q, k, v, scale)
+
+
 # kernels with more than one route, and the counter of each
 ROUTES = {
     "ssd_scan": ("launches_tc", "launches_fma"),
@@ -118,7 +132,7 @@ def row_group_count() -> int:
 
 def reset_launch_counts() -> None:
     """Zero every kernel's counters: ``launches`` and each ``launches_*``
-    (a route's, or one of conv_lanes' directions)."""
+    (a route's, or one of conv_lanes' or mla_attention's directions)."""
     for fn in KERNELS.values():
         for counter in [a for a in vars(fn) if a.startswith("launches")]:
             setattr(fn, counter, 0)
@@ -127,6 +141,6 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "vaoi_distance", "fedavg_reduce", "fedavg_reduce_leaves", "ssd_scan", "swa_attention", "conv_lanes",
-    "conv_lanes_input_grad", "conv_lanes_weight_grad", "launch_counts",
+    "conv_lanes_input_grad", "conv_lanes_weight_grad", "mla_attention", "launch_counts",
     "route_launch_counts", "row_group_count", "reset_launch_counts", "ref",
 ]

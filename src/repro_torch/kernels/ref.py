@@ -2,8 +2,9 @@
 truth each Hopper kernel is held against on the card."""
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +79,87 @@ def swa_attention_ref(
         attn = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
         out[:, :, i0 : i0 + qf.shape[2]] = torch.einsum("bhqk,bhkd->bhqd", attn, vf).to(q.dtype)
     return out
+
+
+@functools.cache
+def _sqrt_in(hd: int, dtype: torch.dtype) -> float:
+    """√hd in fp32, rounded to ``dtype``, as the reference's
+    ``jnp.sqrt(hd).astype(q.dtype)`` (11.3125 in bf16 for hd = 128)."""
+    return torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype).item()
+
+
+def gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Sq,nh,hd), k (B,Sk,nkv,hd) -> scores (B,nh,Sq,Sk) in q's dtype,
+    with GQA grouping: query head h reads KV head h // (nh / nkv).  The
+    products over √hd rounded to q's dtype, or times ``scale`` where given."""
+    B, Sq, nh, hd = q.shape
+    nkv = k.shape[2]
+    g = nh // nkv
+    qg = q.reshape(B, Sq, nkv, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
+    s = s / _sqrt_in(hd, q.dtype) if scale is None else s * scale
+    return s.reshape(B, nh, Sq, k.shape[1])
+
+
+def gqa_out(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """attn (B,nh,Sq,Sk), v (B,Sk,nkv,hd) -> (B,Sq,nh*hd)."""
+    B, nh, Sq, Sk = attn.shape
+    nkv, hd = v.shape[2], v.shape[3]
+    g = nh // nkv
+    a = attn.reshape(B, nkv, g, Sq, Sk)
+    o = torch.einsum("bkgqs,bskh->bqkgh", a, v)
+    return o.reshape(B, Sq, nh * hd)
+
+
+# q-chunked attention above this sequence length: the (S, S) score matrix is
+# never materialised; each chunk holds only (B, nh, Q_CHUNK, S).
+CHUNK_THRESHOLD = 1024
+Q_CHUNK = 512
+
+
+def masked_softmax_attn(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int, causal: bool, window: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The models' plain attention core.  q, k: (B,Cq / Sk,nh / nkv,hd); v:
+    (B,Sk,nkv,hv).  Rows are absolute position q_offset + arange(Cq);
+    ``scale`` as :func:`gqa_scores`.  The scores in q's dtype, then fp32,
+    masked, softmax, rounded to q's dtype, times v.  Returns (B, Cq, nh*hv)."""
+    scores = gqa_scores(q, k, scale).float()
+    Cq, Sk = scores.shape[-2], scores.shape[-1]
+    if causal:
+        iq = q_offset + torch.arange(Cq, device=q.device)[:, None]
+        jk = torch.arange(Sk, device=q.device)[None, :]
+        mask = jk <= iq
+        if window > 0:
+            mask &= jk > iq - window
+        scores = scores.masked_fill(~mask, -1e30)
+    attn = torch.softmax(scores, dim=-1).to(q.dtype)
+    return gqa_out(attn, v)
+
+
+def masked_softmax_chunks(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int, scale: Optional[float] = None
+) -> torch.Tensor:
+    """:func:`masked_softmax_attn` over all of q's rows: over
+    ``CHUNK_THRESHOLD`` tokens one ``Q_CHUNK`` of queries at a time, so the
+    (S, S) scores are never materialised."""
+    S = q.shape[1]
+    if S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
+        return torch.cat(
+            [masked_softmax_attn(q[:, i : i + Q_CHUNK], k, v, i, causal, window, scale) for i in range(0, S, Q_CHUNK)],
+            dim=1,
+        )
+    return masked_softmax_attn(q, k, v, 0, causal, window, scale)
+
+
+def mla_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Causal attention of multi-head latent attention's heads (DeepSeek-V2):
+    q, k (B, S, H, Dqk), v (B, S, H, Dv), one key head a query head ->
+    (B, S, H*Dv) in q's dtype, by :func:`masked_softmax_chunks`, the released
+    ``modeling_deepseek.py``'s order.  The plain version of
+    ``kernels/mla_attention.py``, and the CPU's path."""
+    return masked_softmax_chunks(q, k, v, True, 0, scale)
 
 
 def ssd_scan_ref(

@@ -17,14 +17,14 @@ Multi-head latent attention (DeepSeek-V2, ``cfg.kv_lora_rank > 0``):
 :func:`init_mla` and :func:`mla_forward`, the released
 ``modeling_deepseek.py`` without a q-LoRA.  q and k are nope + rope wide
 (192 for DeepSeek-V2-Lite) and v another width (128), which
-``swa_attention`` does not take (equal q, k and v dims of 32, 64 or 128), so
-MLA runs the plain masked softmax on either route.  Serving a latent cache
-is not ported (``decoder.init_cache`` refuses MLA).
+``swa_attention`` does not take, so MLA's core has a kernel of its own,
+``kernels/mla_attention.py`` (forward and backward, one launch a direction
+under ``vmap``): CUDA bf16 inputs take it, everything else the plain masked
+softmax (``kernels.ref.mla_attention_ref``).  Serving a latent cache is not
+ported (``decoder.init_cache`` refuses MLA).
 """
 from __future__ import annotations
 
-import functools
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -32,6 +32,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import CHUNK_THRESHOLD, Q_CHUNK, gqa_out, gqa_scores, masked_softmax_chunks  # noqa: F401
 from repro_torch.models import spmd
 from repro_torch.models.common import (
     Params,
@@ -106,62 +107,6 @@ def heads_spec(cfg: ModelConfig, mesh) -> tuple:
     return (spmd.BATCH, None, heads)
 
 
-@functools.cache
-def _sqrt_in(hd: int, dtype: torch.dtype) -> float:
-    """√hd in fp32, rounded to ``dtype``, as the reference's
-    ``jnp.sqrt(hd).astype(q.dtype)`` (11.3125 in bf16 for hd = 128)."""
-    return torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype).item()
-
-
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,Sq,nh,hd), k (B,Sk,nkv,hd) -> scores (B,nh,Sq,Sk) in q's dtype,
-    with GQA grouping: query head h reads KV head h // (nh / nkv).  The
-    products over √hd rounded to q's dtype, or times ``scale`` where given."""
-    B, Sq, nh, hd = q.shape
-    nkv = k.shape[2]
-    g = nh // nkv
-    qg = q.reshape(B, Sq, nkv, g, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k)
-    s = s / _sqrt_in(hd, q.dtype) if scale is None else s * scale
-    return s.reshape(B, nh, Sq, k.shape[1])
-
-
-def _gqa_out(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """attn (B,nh,Sq,Sk), v (B,Sk,nkv,hd) -> (B,Sq,nh*hd)."""
-    B, nh, Sq, Sk = attn.shape
-    nkv, hd = v.shape[2], v.shape[3]
-    g = nh // nkv
-    a = attn.reshape(B, nkv, g, Sq, Sk)
-    o = torch.einsum("bkgqs,bskh->bqkgh", a, v)
-    return o.reshape(B, Sq, nh * hd)
-
-
-# q-chunked attention above this sequence length: the (S, S) score matrix is
-# never materialised; each chunk holds only (B, nh, Q_CHUNK, S).
-CHUNK_THRESHOLD = 1024
-Q_CHUNK = 512
-
-
-def _masked_softmax_attn(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int, causal: bool, window: int,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """q, k: (B,Cq / Sk,nh / nkv,hd); v: (B,Sk,nkv,hv). Rows are absolute
-    position q_offset + arange(Cq); ``scale`` as :func:`_gqa_scores`.
-    Returns (B, Cq, nh*hv)."""
-    scores = _gqa_scores(q, k, scale).float()
-    Cq, Sk = scores.shape[-2], scores.shape[-1]
-    if causal:
-        iq = q_offset + torch.arange(Cq, device=q.device)[:, None]
-        jk = torch.arange(Sk, device=q.device)[None, :]
-        mask = jk <= iq
-        if window > 0:
-            mask &= jk > iq - window
-        scores = scores.masked_fill(~mask, -1e30)
-    attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    return _gqa_out(attn, v)
-
-
 def attn_forward(
     cfg: ModelConfig,
     p: Params,
@@ -229,22 +174,7 @@ def _attend(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window if causal else 0, causal=causal
             )
             return o.transpose(1, 2).reshape(B, S, nh * hd)
-        return _masked_softmax_chunks(q, k, v, causal, window)
-
-
-def _masked_softmax_chunks(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int, scale: Optional[float] = None
-) -> torch.Tensor:
-    """:func:`_masked_softmax_attn` over all of q's rows: over
-    ``CHUNK_THRESHOLD`` tokens one ``Q_CHUNK`` of queries at a time, so the
-    (S, S) scores are never materialised."""
-    S = q.shape[1]
-    if S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
-        return torch.cat(
-            [_masked_softmax_attn(q[:, i : i + Q_CHUNK], k, v, i, causal, window, scale) for i in range(0, S, Q_CHUNK)],
-            dim=1,
-        )
-    return _masked_softmax_attn(q, k, v, 0, causal, window, scale)
+        return masked_softmax_chunks(q, k, v, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -294,8 +224,9 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.T
     (B, S, d).  q = x wq split into nope and rope parts per head; the
     latent c = kv_norm(x wkv_a[:r]) gives each head's k nope and v through
     ``wkv_b``; the rope key x wkv_a[r:] is one per token, shared by the
-    heads; both rope parts rotated (:func:`_mla_rope`); then the plain
-    masked softmax (:func:`_masked_softmax_chunks`)."""
+    heads; both rope parts rotated (:func:`_mla_rope`); then the causal
+    core, ``kernels.ops.mla_attention`` (the kernel on CUDA bf16 inputs,
+    else the plain masked softmax)."""
     B, S, _ = x.shape
     nh, r = cfg.num_heads, cfg.kv_lora_rank
     nope, rope, vd = cfg.q_head_dim_nope, cfg.q_head_dim_rope, cfg.v_head_dim
@@ -309,8 +240,8 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.T
         k_rope = _mla_rope(cfg, ckv[..., None, r:], pos_b).expand(B, S, nh, rope)
         k = torch.cat([kv[..., :nope], k_rope], dim=-1)
         v = kv[..., nope:]
-    with record_function("lm.attn"):  # the scores in q's dtype, the softmax in fp32, as the released code
-        o = _masked_softmax_chunks(q, k, v, True, 0, mla_softmax_scale(cfg))
+    with record_function("lm.attn"):
+        o = kops.mla_attention(q, k, v, mla_softmax_scale(cfg))
     with record_function("lm.out_proj"):
         return o @ p["wo"]
 
@@ -337,8 +268,8 @@ def _unmasked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int) -
     """Unmasked attention of flat q (B, Sq, H*hd) over k, v (B, Sk, Hkv, hd)
     -> (B, Sq, H*hd)."""
     q = _split_heads(q, hd)
-    attn = torch.softmax(_gqa_scores(q, k).float(), dim=-1).to(q.dtype)
-    return _gqa_out(attn, v)
+    attn = torch.softmax(gqa_scores(q, k).float(), dim=-1).to(q.dtype)
+    return gqa_out(attn, v)
 
 
 def _out_proj(cfg: ModelConfig, p: Params, o: torch.Tensor) -> torch.Tensor:
@@ -445,7 +376,7 @@ def _decode_core(
     rows = (torch.arange(B, device=q.device), slot)
     ck = cache_k.index_put(rows, k[:, 0])
     cv = cache_v.index_put(rows, v[:, 0])
-    scores = _gqa_scores(q, ck).float()  # (B, nh, 1, W)
+    scores = gqa_scores(q, ck).float()  # (B, nh, 1, W)
     slots = torch.arange(W, device=q.device)[None, :]  # (1, W)
     if rolling:
         # slot j holds absolute position p_j = pos - ((pos - j) mod W); valid if
@@ -456,4 +387,4 @@ def _decode_core(
         valid = slots <= positions[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
-    return _gqa_out(attn, cv), ck, cv
+    return gqa_out(attn, cv), ck, cv
